@@ -1,0 +1,9 @@
+"""PyTorch port of ctrl_sim_tpu for NVIDIA Hopper GPUs.
+
+The JAX package ``ctrl_sim_tpu`` stays the reference; this package imports
+nothing of it. Its entry points run on the card unless the caller passes
+``device="cpu"``. Ported so far: the 2-pass streaming closed-loop rollout
+of the default CtRL-Sim family with contacts off (``rollout.streaming``),
+with the decode attention over the KV cache as a hand-written CUDA kernel
+(``ops.attention``, source ``csrc/decode_attention.cu``).
+"""

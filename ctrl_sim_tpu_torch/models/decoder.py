@@ -1,0 +1,146 @@
+"""Multi-agent causal decoder, streaming part (port of
+``ctrl_sim_tpu/models/decoder.py``: ``KVCache``, ``memory_kv`` and
+``decode_step_groups``; reference modules/decoder.py:8-79).
+
+The decoder layers attend over a ring-buffer KV cache through the
+decode-attention kernel (ops/attention.py) at every width, and over the
+static episode memory through pre-projected cross-attention K/V. Heads:
+1000-way action categorical (read from the rtg-token stream), 350 bins x 3
+return-to-go components (from the state-token stream), and the future-state
+head that training reads.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ctrl_sim_tpu_torch.config import Config
+from ctrl_sim_tpu_torch.models.layers import MLPLayer, TransformerDecoderLayer
+from ctrl_sim_tpu_torch.ops import masks
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class KVCache:
+    """Ring-buffer self-attention cache of the streaming decoder.
+
+    k, v: per-layer lists of [B, window, K, A, H] — token-type-major within
+    each timestep slot, so one group of A tokens of one type is one
+    contiguous slice. The buffers are updated in place by ``decode_step``.
+    slot_t: the episode timestep each slot holds (-1 empty).
+    """
+
+    k: list[Tensor]
+    v: list[Tensor]
+    slot_t: list[int]
+
+    @staticmethod
+    def create(num_layers: int, B: int, window: int, A: int, K: int, H: int,
+               dtype: torch.dtype, device=None) -> "KVCache":
+        def buf():
+            return torch.zeros((B, window, K, A, H), dtype=dtype, device=device)
+
+        return KVCache(
+            k=[buf() for _ in range(num_layers)],
+            v=[buf() for _ in range(num_layers)],
+            slot_t=[-1] * window,
+        )
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: Config, dtype: torch.dtype, device=None):
+        super().__init__()
+        mc, wc = cfg.model, cfg.waymo
+        H = mc.hidden_dim
+        self.cfg = cfg
+        score = getattr(torch, mc.cross_score_dtype)
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(
+                H, mc.num_heads, mc.dim_feedforward, dtype,
+                cross_score_dtype=score, device=device,
+            )
+            for _ in range(mc.num_decoder_layers)
+        )
+        self.predict_action = MLPLayer(H, H, wc.action_dim, dtype, device)
+        if mc.predict_rtg:
+            self.predict_rtg = MLPLayer(
+                H, H, wc.rtg_discretization * mc.num_reward_components, dtype, device
+            )
+        if mc.predict_future_states:
+            self.predict_future_states = MLPLayer(
+                H, H, wc.train_context_length * 2, dtype, device
+            )
+
+    def memory_kv(self, memory: Tensor) -> list[tuple[Tensor, Tensor]]:
+        """Each layer's cross-attention K/V of the static episode memory,
+        projected once per episode."""
+        return [
+            (layer.cross_attn.k_proj(memory), layer.cross_attn.v_proj(memory))
+            for layer in self.layers
+        ]
+
+    def decode_step_groups(
+        self,
+        groups,  # sequence of (tokens [B, A, H] post embed_ln, token_type int, t int)
+        cache: KVCache,
+        memory_valid: Tensor,
+        window: int,
+        memory_kv: list[tuple[Tensor, Tensor]],
+        mask_override: Tensor | None = None,  # [Q, N] precomputed (int8/bool)
+    ) -> tuple[Tensor, KVCache]:
+        """Incremental decode of one or more A-token groups in one decoder
+        pass; returns the layer-stack outputs [B, len(groups)*A, H]
+        (group-major) and the cache, updated in place.
+
+        Every group's K/V are written into the ring before attending. A t = -1
+        group (the "previous action" block at episode start) writes junk K/V
+        that stay masked: its slot keeps the label -1 until a real timestep
+        overwrites it. The mask uses the true flat token indices on both sides,
+        so the training-time predicate (ops/masks.py) applies verbatim.
+        """
+        mc = self.cfg.model
+        K = mc.num_token_types
+        A = groups[0][0].shape[1]
+        writes = []
+        for gi, (_, token_type, tg) in enumerate(groups):
+            slot = tg % window
+            if tg >= 0:
+                cache.slot_t[slot] = tg
+            writes.append((slot, token_type, gi * A))
+
+        x = torch.cat([tokens for tokens, _, _ in groups], dim=1)
+        if mask_override is not None:
+            mask = mask_override
+        else:
+            mask = self._mask(groups, cache.slot_t, A, K, window, x.device)
+        for li, layer in enumerate(self.layers):
+            x = layer.decode_step(
+                x, cache.k[li], cache.v[li], writes, mask, memory_valid, memory_kv[li]
+            )
+        return x, cache
+
+    def _mask(self, groups, slot_t: list[int], A: int, K: int, window: int, device) -> Tensor:
+        """The [Q, window*K*A] visibility of the groups' queries over the
+        ring's keys, from the slot -> timestep labels."""
+        mc = self.cfg.model
+        ar = lambda n: torch.arange(n, device=device)  # noqa: E731
+        a_j = ar(A).repeat(window * K)
+        k_j = ar(K).repeat_interleave(A).repeat(window)
+        t_j = torch.tensor(slot_t, device=device).repeat_interleave(K * A)
+        jj = t_j * (A * K) + a_j * K + k_j
+        a_i = ar(A).repeat(len(groups))
+        t_i = torch.tensor([tg for _, _, tg in groups], device=device).repeat_interleave(A)
+        k_i = torch.tensor([tt for _, tt, _ in groups], device=device).repeat_interleave(A)
+        ii = t_i * (A * K) + a_i * K + k_i
+        m = masks.visible(
+            ti=t_i[:, None], ai=a_i[:, None], ii=ii[:, None],
+            tj=t_j[None, :], aj=a_j[None, :], kj=k_j[None, :], jj=jj[None, :],
+            state_index=mc.state_token_index,
+            attend_own_return_action=mc.attend_own_return_action,
+            window=window,
+        )
+        return m & (t_j[None, :] >= 0)

@@ -1,0 +1,57 @@
+"""Rollout-time sampling (port of ``ctrl_sim_tpu/rollout/policy.py``):
+exponentially tilted RTG sampling (reference policies/policy.py:108-142) and
+temperature / nucleus action sampling (autoregressive_policy.py:209-240),
+batched over every lane and agent, drawing from an explicit
+``torch.Generator``. The JAX package draws from ``jax.random`` keys, so the
+two agree in distribution, not draw for draw."""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def sample_categorical(generator: torch.Generator, logits: Tensor) -> Tensor:
+    """One draw per row over the last axis, P(i) = softmax(logits)_i, by the
+    Gumbel-max trick in its exponential form: argmax(logits - log E),
+    E ~ Exp(1)."""
+    noise = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+    noise.exponential_(generator=generator)
+    return torch.argmax(logits.float() - torch.log(noise), dim=-1)
+
+
+def sample_tilted_rtgs(generator: torch.Generator, rtg_logits: Tensor, tilt_logits: Tensor) -> Tensor:
+    """Add tilt logits per component and sample one bin per component
+    (policy.py:117-129). rtg_logits [..., num_bins, 3], tilt broadcastable;
+    returns integer bins [..., 3]."""
+    tilted = rtg_logits.float() + tilt_logits
+    return sample_categorical(generator, tilted.transpose(-1, -2))
+
+
+def nucleus_filter(logits: Tensor, threshold: float) -> Tensor:
+    """Top-p filtering (autoregressive_policy.py:217-231): keep the smallest
+    prefix of descending-probability tokens whose cumulative mass reaches
+    ``threshold`` (the crossing token included); ties with the last kept
+    probability are kept too, as in the JAX version."""
+    probs = torch.softmax(logits, dim=-1)
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    prev_cum = torch.cat([torch.zeros_like(cum[..., :1]), cum[..., :-1]], dim=-1)
+    num_keep = (prev_cum < threshold).sum(dim=-1, keepdim=True)
+    kth = torch.gather(sorted_probs, -1, num_keep - 1)
+    return torch.where(probs >= kth, logits, torch.finfo(logits.dtype).min)
+
+
+def sample_actions(
+    generator: torch.Generator,
+    logits: Tensor,  # [..., num_actions]
+    temperature: float = 1.0,
+    nucleus: bool = False,
+    nucleus_threshold: float = 0.8,
+) -> Tensor:
+    """Temperature + optional nucleus sampling -> action ids [...]."""
+    scaled = logits.float() / temperature
+    if nucleus:
+        scaled = nucleus_filter(scaled, nucleus_threshold)
+    return sample_categorical(generator, scaled)
