@@ -9,7 +9,8 @@ code is 0 only when every phase passed:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
-   in the checkout (one nvcc per source, all started together);
+   in the checkout (one nvcc per source, all started together), with
+   ptxas's registers and spills;
 3. kernel K1 (decode attention) against its plain PyTorch version on the
    card: the rollout's shapes (256 lanes, Q = 32 and 16 queries, N = 1536
    keys, H = 256 = 8 heads x 32) in bf16 and f32, a narrow case (H = 64 =
@@ -17,22 +18,46 @@ code is 0 only when every phase passed:
    absolute in bf16, 1e-4 in f32. Times (CUDA events, median of 30
    launches after warm-up) of the kernel, the plain version and one
    library call, F.scaled_dot_product_attention, kept as a yardstick only;
-4. small-input agreement: the streaming rollout at a toy width on the card,
+4. kernels K3/K4 (training flash attention, forward and backward) against
+   the plain version on the card: output, lse, dq, dk and dv at the
+   training shape (T = 32 x 24 x 3 = 2304, H = 256 = 8 x 32, B = 4) in bf16
+   and f32 with dropout 0 and 0.1, a ragged T (29 x 23 x 3 = 2001) and a
+   narrow width (H = 64 = 4 x 16); tolerances 2e-2 absolute on outputs and
+   5e-2 of max |grad| on gradients in bf16, 1e-4 and 1e-4 in f32. Times at
+   the trainer's B = 16 (the plain version at B = 4, so labelled; the
+   library yardstick is SDPA with the boolean [T, T] mask at dropout 0);
+5. small-input agreement: the streaming rollout at a toy width on the card,
    replaying the draws of the same rollout on the CPU, agrees with it;
-5. the main path at full width: random weights from a seeded generator
+6. the rollout at full width: random weights from a seeded generator
    (hidden 256, 8 heads, FF 1024, 2 + 4 layers, bf16 compute, bf16
    cross-attention scores), 256 synthetic scenes of 12 agents packed into
    16 slots, ``run_streaming`` for 90 steps with contacts off; every output
    finite, and K1 launched exactly 2 passes x 4 layers x 90 steps = 720
-   times.
+   times;
+7. train-small-agreement: one train step at a toy width (f32, dropout and
+   goal dropout 0) from the same params and batch on the card (K3/K4) and
+   on the CPU (plain version): losses, gradients and updated params within
+   1e-4;
+8. train at full width: the default model with dropout 0.1, 64 synthetic
+   scenes of 12 agents replayed through physics (contacts off) into a
+   ``ScenarioStore``, 10 steps of ``Trainer.make_train_step`` at global
+   batch 64 as 16 x 4 accumulation; every loss and the gradient norm
+   finite, and exactly 4 layers x 4 microbatches = 16 K3 and 16 K4
+   launches per step.
 
 Then one line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile-train
+
+only profiles a few full-width train steps (phase 8's set-up) with
+torch.profiler and prints the device time by kernel.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,9 +67,11 @@ SEED = 0
 LANES = 256  # one bench chunk of scenes
 AGENTS, LANE_ROADS, ARENA = 12, 4, 300.0  # bench.py's scene recipe
 SLOTS = 16
+TRAIN_SCENES, TRAIN_STEPS = 64, 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet, dense rates below too)
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 outside them
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # of max |grad|
 
 
 def _phase(name: str, t0: float, detail: str = "") -> None:
@@ -106,6 +133,110 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+
+
+def _flash_inputs(B, steps, A, K, heads, d, dtype, gen):
+    import torch
+
+    T, D = steps * A * K, heads * d
+    return [torch.randn((B, T, D), generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+
+def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen):
+    """K3 and K4 against the plain version (autograd for the gradients) on
+    one input; returns the errors, outputs' relative to nothing and
+    gradients' relative to max |grad|."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    spec = fa.MaskSpec(A, K, 0, False, None)
+    q, k, v, do = _flash_inputs(B, steps, A, K, heads, d, getattr(torch, dtype), gen)
+    seed = torch.tensor([0x5EED], device="cuda")
+    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed)
+    grads = fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed)
+    leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    want, want_lse = fa.flash_mha_reference(*leaves, spec, heads, dropout_p, seed)
+    want_grads = torch.autograd.grad(want, leaves, do.float())
+    torch.cuda.synchronize()
+    for name, x in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"K3/K4 gave non-finite {name} at T={q.shape[1]} {dtype}")
+    out_err = max((out.float() - want).abs().max().item(), (lse - want_lse).abs().max().item())
+    grad_err = max((g.float() - w).abs().max().item() / w.abs().max().item()
+                   for g, w in zip(grads, want_grads))
+    grad_abs = max((g.float() - w).abs().max().item() for g, w in zip(grads, want_grads))
+    if out_err > TOL[dtype] or grad_err > GRAD_TOL[dtype]:
+        raise AssertionError(
+            f"K3/K4 disagree with the plain version at B={B} T={q.shape[1]} H={heads * d}/{heads} "
+            f"{dtype} p={dropout_p}: outputs {out_err} (tol {TOL[dtype]}), gradients "
+            f"{grad_err} of max |grad| (tol {GRAD_TOL[dtype]})")
+    return {"shape": f"B={B} T={q.shape[1]} H={heads * d}/{heads} {dtype} p={dropout_p}",
+            "out_err": out_err, "grad_err": grad_err, "grad_abs_err": grad_abs}
+
+
+def _flash_bounds(B, T, H, heads, spec, dtype):
+    """Least times of K3 and K4 on this card for these inputs: the larger
+    of the mask's admitted pairs' operations at the peak rate and the bytes
+    read once and written once at the memory rate."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    idx = torch.arange(T, device="cuda")
+    pairs = int(fa.block_mask(idx[:, None], idx[None, :], T, spec).sum().item())
+    es = torch.finfo(getattr(torch, dtype)).bits // 8
+    tensor, lse = B * T * H * es, B * heads * T * 4
+    out = {"pairs": pairs}
+    for name, flops, nbytes in (("fwd", 4 * pairs * H * B, 4 * tensor + lse),
+                                ("bwd", 10 * pairs * H * B, 8 * tensor + lse)):
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
+        out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def _flash_times(gen):
+    """K3/K4 at the trainer's shape (B = 16, T = 2304, H = 256 / 8, bf16,
+    dropout 0.1 as the train step runs them), the plain version at B = 4
+    and the library yardstick (SDPA, boolean mask, dropout 0) at B = 16."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    steps, A, K, heads, d = 32, 24, 3, 8, 32
+    spec = fa.MaskSpec(A, K, 0, False, None)
+    seed = torch.tensor([7], device="cuda")
+    res = {}
+    for B in (16, 4):
+        q, k, v, do = _flash_inputs(B, steps, A, K, heads, d, torch.bfloat16, gen)
+        if B == 16:
+            out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed)
+            res["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed))
+            res["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, 0.1, seed))
+            T = q.shape[1]
+            mask = fa.block_mask(torch.arange(T, device="cuda")[:, None], torch.arange(T, device="cuda")[None, :], T, spec)
+            q4, k4, v4 = (x.view(B, T, heads, d).transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            res["library_fwd_ms"] = _median_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), reps=10, warmup=2)
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            do4 = do.view(B, T, heads, d).transpose(1, 2)
+            res["library_bwd_ms"] = _median_ms(
+                lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4, retain_graph=True), reps=10, warmup=2)
+            res["bound"] = _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")
+            del lib_out, q4, k4, v4
+        else:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            with torch.no_grad():
+                res["plain_fwd_ms"] = _median_ms(
+                    lambda: fa.flash_mha_reference(q, k, v, spec, heads, 0.1, seed), reps=10, warmup=2)
+            ref_out, _ = fa.flash_mha_reference(*leaves, spec, heads, 0.1, seed)
+            res["plain_bwd_ms"] = _median_ms(
+                lambda: torch.autograd.grad(ref_out, leaves, do, retain_graph=True), reps=10, warmup=2)
+            del ref_out, leaves
+        torch.cuda.empty_cache()
+    return res
 
 
 class _RecordingSampler:
@@ -180,6 +311,169 @@ def _small_agreement() -> str:
     return f"max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, |d reward8| {rew_err:.3g}"
 
 
+def _toy_train_config(load_config):
+    return load_config({
+        "model.hidden_dim": 64, "model.num_heads": 4, "model.dim_feedforward": 128,
+        "model.num_transformer_encoder_layers": 1, "model.num_decoder_layers": 2,
+        "model.compute_dtype": "float32", "model.dropout": 0.0, "model.goal_dropout": 0.0,
+        "waymo.max_num_agents": 12, "sim.max_agents": 12, "waymo.train_context_length": 8,
+        "waymo.max_num_road_polylines": 16, "waymo.max_num_road_pts_per_polyline": 20,
+        "sim.steps": 16, "sim.resolve_contacts": False, "train.global_batch_size": 4,
+        "train.accum_steps": 2, "train.lr": 5e-5,
+    })
+
+
+def _train_small_agreement() -> str:
+    """One train step at a toy width on the card (K3/K4) and on the CPU
+    (plain version) from the same params and batch. The state starts past
+    the warmup, so the update moves every weight: at lr 5e-5 by at most
+    about lr, which bounds what a sign flip of a near-zero gradient can do."""
+    import torch
+
+    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+    from ctrl_sim_tpu_torch.params import init_params
+    from ctrl_sim_tpu_torch.training import Trainer
+
+    cfg = _toy_train_config(load_config)
+    scenes = [synthetic_scenario(cfg, seed=SEED + s, num_agents=8, arena_half=60.0, num_lanes=2)
+              for s in range(4)]
+    store = ScenarioStore.from_scenes(cfg, scenes, device="cpu")
+    batch = store.sample_batch(torch.Generator().manual_seed(SEED), cfg.train.global_batch_size)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = CtRLSim(cfg, device=device)
+        init_params(model, torch.Generator().manual_seed(SEED))
+        trainer = Trainer(cfg, device=device)
+        state = trainer.state_from_model(model, step=cfg.train.warmup_steps)
+        f0, b0 = fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches
+        state, losses = trainer.make_train_step()(
+            state, {k: v.to(device) for k, v in batch.items()}, torch.Generator(device=device).manual_seed(SEED))
+        launched = (fa.flash_mha_fwd.launches - f0, fa.flash_mha_bwd.launches - b0)
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        runs[device] = (losses, grads, params, launched)
+    (lc, gc, pc, _), (lg, gg, pg, launched) = runs["cpu"], runs["cuda"]
+    expected = cfg.model.num_decoder_layers * cfg.train.accum_steps
+    if launched != (expected, expected):
+        raise AssertionError(f"toy train step launched K3/K4 {launched} times, expected {expected} each")
+    loss_err = max(abs(float(a) - float(b)) for a, b in zip(lc, lg))
+    gmax = max(g.abs().max().item() for g in gc.values())
+    grad_err = max((gc[n] - gg[n]).abs().max().item() for n in gc) / gmax
+    param_err = max((pc[n] - pg[n]).abs().max().item() for n in pc)
+    if loss_err > 1e-4 or grad_err > 1e-4 or param_err > 1e-4:
+        raise AssertionError(f"card and CPU train steps disagree: losses {loss_err}, gradients "
+                             f"{grad_err} of max |grad|, params {param_err}")
+    return (f"max |d loss| {loss_err:.3g}, |d grad| / max|grad| {grad_err:.3g}, |d param| {param_err:.3g}; "
+            f"K3/K4 launches {launched}")
+
+
+def _train_setup():
+    """The full-width training set-up: default model (dropout 0.1), 64
+    synthetic scenes replayed through physics into a store on the card,
+    global batch 64 as 16 x 4 accumulation."""
+    import torch
+
+    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.training import Trainer
+
+    cfg = load_config({"sim.resolve_contacts": False, "train.accum_steps": 4})
+    scenes = [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
+              for s in range(TRAIN_SCENES)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    store = ScenarioStore.from_scenes(cfg, scenes)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - start
+    trainer = Trainer(cfg)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    data_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dropout_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return cfg, store, state, trainer.make_train_step(), data_gen, dropout_gen, replay_s
+
+
+def profile_train(steps: int = 3) -> None:
+    """``--profile-train``: where the full-width train step's time goes.
+    Two warm-up steps, then ``steps`` steps under torch.profiler; prints
+    the device time by kernel (top 25), the flash kernels' share and the
+    device's busy share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, store, state, train_step, data_gen, dropout_gen, _ = _train_setup()
+    for _ in range(2):
+        state, _ = train_step(state, store.sample_batch(data_gen, cfg.train.global_batch_size), dropout_gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            batch = store.sample_batch(data_gen, cfg.train.global_batch_size)
+            state, _ = train_step(state, batch, dropout_gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    flash_ms = sum(v for k, v in by_name.items() if "flash_" in k)
+    print(f"[profile-train] {steps} steps, wall {wall_ms:.1f} ms ({wall_ms / steps:.1f} per step); device busy "
+          f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall; K3/K4 kernels {flash_ms:.1f} ms = "
+          f"{100 * flash_ms / busy_ms:.1f}% of device time")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"  {ms / steps:9.3f} ms/step {100 * ms / busy_ms:5.1f}%  {name[:110]}")
+
+
+def _train_full(t_phase: float) -> dict:
+    """The full-width training step (section 8 of the docstring)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    cfg, store, state, train_step, data_gen, dropout_gen, replay_s = _train_setup()
+    per_step = cfg.model.num_decoder_layers * cfg.train.accum_steps
+    batch_ms, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_mha_fwd.launches = fa.flash_mha_bwd.launches = 0
+    for i in range(TRAIN_STEPS):
+        f0, b0 = fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches
+        t0 = time.perf_counter()
+        batch = store.sample_batch(data_gen, cfg.train.global_batch_size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, losses = train_step(state, batch, dropout_gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        batch_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        launched = (fa.flash_mha_fwd.launches - f0, fa.flash_mha_bwd.launches - b0)
+        if launched != (per_step, per_step):
+            raise AssertionError(f"train step {i} launched K3/K4 {launched} times, expected {per_step} each")
+        values = [float(x) for x in losses] + [float(state.grad_norm)]
+        if not all(map(math.isfinite, values)):
+            raise AssertionError(f"train step {i}: non-finite loss or gradient norm {values}")
+        print(f"  step {i + 1}: loss {values[0]:.4f} (actions {values[1]:.4f}, state {values[5]:.4f}), "
+              f"grad norm {values[6]:.4f}, batch {batch_ms[-1]:.1f} ms, step {step_ms[-1]:.1f} ms", flush=True)
+    launches = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _phase("train", t_phase,
+           f"{TRAIN_STEPS} steps of global batch {cfg.train.global_batch_size} = {cfg.train.accum_steps} x "
+           f"{cfg.train.global_batch_size // cfg.train.accum_steps}, T = {cfg.waymo.train_context_length} x "
+           f"{cfg.waymo.max_num_agents} x 3; replay of {TRAIN_SCENES} scenes {replay_s:.3f}s; step ms cold "
+           f"{step_ms[0]:.1f}, steady median {statistics.median(step_ms[1:]):.1f}; batch build ms median "
+           f"{statistics.median(batch_ms[1:]):.1f}; peak memory {peak / 2**30:.2f} GiB; K3/K4 launches {launches} "
+           f"(one cold run on this card, not a benchmark)")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -243,6 +537,27 @@ def main() -> int:
     _phase("k1-vs-plain", t0, f"{len(cases)} cases within 2e-2 (bf16) / 1e-4 (f32)")
 
     t0 = time.perf_counter()
+    flash = {}
+    for dtype in ("bfloat16", "float32"):
+        for p in (0.0, 0.1):
+            flash[f"train-shape {dtype} p={p}"] = _flash_case(4, 32, 24, 3, 8, 32, dtype, p, gen)
+    flash["ragged bfloat16"] = _flash_case(4, 29, 23, 3, 8, 32, "bfloat16", 0.1, gen)
+    flash["ragged float32"] = _flash_case(4, 29, 23, 3, 8, 32, "float32", 0.1, gen)
+    flash["narrow bfloat16"] = _flash_case(4, 32, 24, 3, 4, 16, "bfloat16", 0.1, gen)
+    for name, row in flash.items():
+        print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, "
+              f"gradient err {row['grad_err']:.3g} of max |grad| ({row['grad_abs_err']:.3g} absolute)")
+    ft = _flash_times(gen)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = ft["bound"]["fwd"], ft["bound"]["bwd"]
+    print(f"  K3 forward, B=16 T=2304 H=256/8 bf16 p=0.1: kernel {ft['fwd_ms']:.4f} ms, bound "
+          f"{fwd_bound:.4f} ms ({fwd_by}; {ft['bound']['pairs']} visible pairs), plain at B=4 "
+          f"{ft['plain_fwd_ms']:.4f} ms, library (SDPA, bool mask, p=0) {ft['library_fwd_ms']:.4f} ms")
+    print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), "
+          f"plain (autograd) at B=4 {ft['plain_bwd_ms']:.4f} ms, library (SDPA backward) "
+          f"{ft['library_bwd_ms']:.4f} ms")
+    _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
+
+    t0 = time.perf_counter()
     detail = _small_agreement()
     _phase("small-agreement", t0, detail)
 
@@ -269,11 +584,11 @@ def main() -> int:
     out = run_streaming(cfg, model, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
-    launches = attention.cached_decode_attention.launches
+    k1_launches = attention.cached_decode_attention.launches
     steps = cfg.sim.steps
     expected = 2 * cfg.model.num_decoder_layers * steps
-    if launches != expected:
-        raise AssertionError(f"K1 launched {launches} times on the main path, expected {expected}")
+    if k1_launches != expected:
+        raise AssertionError(f"K1 launched {k1_launches} times on the main path, expected {expected}")
     for name, x in out._asdict().items():
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"non-finite rollout output {name}")
@@ -281,29 +596,79 @@ def main() -> int:
         raise AssertionError(f"unexpected position shape {tuple(out.position.shape)}")
     _phase("rollout", t0, f"{LANES} lanes x {steps} steps in {elapsed:.3f}s = "
            f"{LANES * steps / elapsed:.1f} env-steps/s on this card (one cold run, not a benchmark); "
-           f"K1 launches {launches}")
+           f"K1 launches {k1_launches}")
+    del out, sc, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    detail = _train_small_agreement()
+    _phase("train-small-agreement", t0, detail)
+
+    t0 = time.perf_counter()
+    train = _train_full(t0)
+    k3_launches, k4_launches = train["launches"]
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
-    print(json.dumps({"kernels": [{
-        "name": "cached_decode_attention",
-        "route": "cuda",
-        "source": "ctrl_sim_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "ctrl_sim_tpu/ops/attention.py:142",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": mean("ms"),
-        "kernel_ms": mean("ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": main_rows[0]["bound_by"],
-        "library_ms": mean("library_ms"),
-        "build_s": build_s,
-    }]}), flush=True)
+    main_flash = flash["train-shape bfloat16 p=0.1"]  # the train step's type and dropout
+    print(json.dumps({"kernels": [
+        {
+            "name": "cached_decode_attention",
+            "route": "cuda",
+            "source": "ctrl_sim_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "ctrl_sim_tpu/ops/attention.py:142",
+            "launches": k1_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+            "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": main_rows[0]["bound_by"],
+            "library_ms": mean("library_ms"),
+            "build_s": build_s,
+        },
+        {
+            "name": "flash_mha_fwd",
+            "route": "cuda",
+            "source": "ctrl_sim_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "ctrl_sim_tpu/ops/flash_attention.py:271",
+            "launches": k3_launches,
+            "max_abs_err": main_flash["out_err"],
+            "ms": ft["fwd_ms"],
+            "plain_ms": ft["plain_fwd_ms"],
+            "plain_shape": "B=4 (the kernel's shape at B=16 otherwise)",
+            "bound_ms": fwd_bound,
+            "bound_by": fwd_by,
+            "library_ms": ft["library_fwd_ms"],
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1",
+        },
+        {
+            "name": "flash_mha_bwd",
+            "route": "cuda",
+            "source": "ctrl_sim_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "ctrl_sim_tpu/ops/flash_attention.py:299",
+            "launches": k4_launches,
+            "max_abs_err": main_flash["grad_abs_err"],
+            "ms": ft["bwd_ms"],
+            "plain_ms": ft["plain_bwd_ms"],
+            "plain_shape": "B=4 (the kernel's shape at B=16 otherwise)",
+            "bound_ms": bwd_bound,
+            "bound_by": bwd_by,
+            "library_ms": ft["library_bwd_ms"],
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1",
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--profile-train"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        profile_train()
+        sys.exit(0)
     sys.exit(main())

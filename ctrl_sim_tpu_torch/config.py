@@ -1,15 +1,17 @@
-"""Configuration of the PyTorch port: the dataclasses the streaming rollout reads.
+"""Configuration of the PyTorch port: the dataclasses the streaming rollout
+and the trainer read.
 
 A copy of the JAX package's ``ctrl_sim_tpu/config.py`` restricted to the
-simulator, dataset, model, policy and evaluation sections, with the same
-field names and defaults (``tests/test_torch_env.py`` holds them equal). The
-port keeps its own copy so that it imports nothing of the JAX package.
-Overrides compose through ``load_config`` with dotted keys.
+simulator, dataset, model, training, policy and evaluation sections, with
+the same field names and defaults (``tests/test_torch_env.py`` holds them
+equal). The port keeps its own copy so that it imports nothing of the JAX
+package. Overrides compose through ``load_config`` with dotted keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -233,6 +235,32 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Reference: cfgs/train/base.yaml (+ finetuning variant)."""
+
+    seed: int = 0
+    max_steps: int = 200_000
+    warmup_steps: int = 500
+    lr: float = 5e-4
+    weight_decay: float = 1e-4
+    gradient_clip_val: float = 10.0
+    global_batch_size: int = 64
+    # microbatch gradient accumulation: each step runs accum_steps
+    # sequential microbatches of global_batch_size / accum_steps (the
+    # reference's global 64 = 16 x 4 GPUs; one card uses 16 x 4 accumulation)
+    accum_steps: int = 1
+    check_val_every_n_steps: int = 2000
+    finetuning: bool = False
+    replay_ratio: float = 0.5
+    save_dir: str = "checkpoints"
+    keep_last_n: int = 2
+    # metrics always go to save_dir/metrics.jsonl; wandb mirrors them when
+    # track is set and the package is importable
+    track: bool = False
+    log_grad_norms: bool = False
+
+
+@dataclass(frozen=True)
 class TiltConfig:
     """Exponential tilting of predicted RTG distributions
     (reference: cfgs/policy/ctrl_sim*.yaml)."""
@@ -298,8 +326,18 @@ class Config:
     sim: SimConfig = field(default_factory=SimConfig)
     waymo: WaymoDatasetConfig = field(default_factory=WaymoDatasetConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def replace(self, **updates: Any) -> "Config":
+        return dataclasses.replace(self, **updates)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
 
 
 def _set_dotted(cfg: Any, key: str, value: Any) -> Any:
@@ -321,3 +359,13 @@ def load_config(overrides: dict | None = None) -> Config:
     for key, value in (overrides or {}).items():
         cfg = _set_dotted(cfg, key, value)
     return cfg
+
+
+def preset(name: str) -> Config:
+    """The configuration of a model family. Only the default CtRL-Sim family
+    is ported; the DT, IL, trajeglish and CTG++ presets raise."""
+    if name == "ctrl_sim":
+        return load_config()
+    if name in ("dt", "il", "trajeglish", "ctg_plus_plus"):
+        raise NotImplementedError(f"preset {name!r}: only the ctrl_sim family is ported")
+    raise ValueError(f"unknown preset: {name!r}")

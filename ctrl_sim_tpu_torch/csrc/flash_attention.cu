@@ -1,0 +1,725 @@
+// Training flash attention under the multi-agent causal mask, for Hopper
+// (sm_90a): the forward (kernel K3) and the backward (kernel K4, two CUDA
+// kernels). Built by ctrl_sim_tpu_torch/ops/build.py with nvcc into a shared
+// library with a plain C interface, loaded with ctypes.
+//
+// Replaces the TPU kernels of ctrl_sim_tpu/ops/flash_attention.py:
+//   K3: _fwd_call -> pl.pallas_call(_fwd_kernel)   (flash_attention.py:271)
+//   K4: _bwd_call -> pl.pallas_call(_bwd_kernel)   (flash_attention.py:299)
+//
+// What they compute, per batch row b and head h (d = H / heads, s = 1/sqrt(d)):
+//   S = s * Q K^T, masked to -1e30 where the multi-agent causal predicate
+//   (ops/masks.py:visible, evaluated from token indices, never stored) is
+//   false; P = softmax(S); lse = m + log(l) per row, before dropout;
+//   O = dropout(P) V with dropout applied after normalization:
+//   keep ? p / (1 - p_drop) : 0, the keep bit the murmur3 finalizer over
+//   (seed, b, h, row, col) in uint32 arithmetic, bit-identical to
+//   _dropout_keep and so to any tiling. The backward recomputes P from lse:
+//   delta = rowsum(dO . O), dP = keep ? dO V^T / (1 - p_drop) : 0,
+//   dS = P (dP - delta) s, dQ = dS K, dK = dS^T Q, dV = dropout(P)^T dO.
+//
+// What bounds them: the arithmetic. At the trainer's shape (B = 16,
+// T = 32 steps x 24 agents x 3 token types = 2304, H = 256 = 8 x 32, bf16)
+// the mask admits 2,628,864 of the 5,308,416 (query, key) pairs; counting
+// only those, the forward does 4 * pairs * H * B = 43.1 GFLOP (0.044 ms at
+// the bf16 tensor-core rate) against 76.7 MB of inputs and outputs
+// (0.023 ms), the backward 10 * pairs * H * B = 107.7 GFLOP (0.109 ms)
+// against 152 MB. This version runs the products on CUDA cores from
+// fp32 shared-memory tiles, where they cannot come near that rate.
+//
+// Design (simple and right first; TMA, wgmma and tensor cores come later):
+// - the TPU kernel holds a lane's whole K/V in VMEM; here K/V stream through
+//   32-row fp32 shared-memory tiles. The forward and dq kernels give each
+//   block one (b, h, 32-query tile); 4 warps own 8 query rows each and each
+//   lane one key of the tile, so every shared-memory read feeds 8 FMAs. The
+//   forward keeps an online softmax (running max and denominator); the
+//   dropped weights are left out of the weighted sum but not of the
+//   denominator, which is what dropout after normalization means.
+// - a key is visible only if its timestep is at most the query's (the
+//   predicate implies it for every layout), so each query tile stops at the
+//   end of its last row's timestep, and a sliding window starts it late:
+//   masked pairs beyond those bounds are never computed, and each weight
+//   they would have taken is exactly 0 in fp32 (exp of -1e30).
+// - the backward is two kernels and no atomics, so it is deterministic:
+//   dq_kernel produces dQ per query tile (and delta, kept for the second),
+//   dkdv_kernel produces dK and dV per 32-key tile, walking the query tiles
+//   that can see it, with warps owning 8 keys and lanes one query each;
+//   both accumulate in fp32 registers and write once, in the inputs' type.
+// - rows and keys past T (the ragged last tile) load as zeros and take no
+//   weight, so nothing of them reaches dK/dV (0 * garbage would).
+// - the tile streamed by each loop (K/V in the forward and dq kernels, Q/dO
+//   in dkdv_kernel) is loaded 16 bytes a thread into registers one tile
+//   ahead, so its device-memory latency overlaps the current tile's
+//   arithmetic; waiting for each tile leaves the kernels latency-bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 8;                // rows each warp owns
+constexpr int kTile = kWarps * kRows;   // rows per tile = one per lane
+constexpr float kMaskNeg = -1e30f;      // the TPU kernel's masked score
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct MaskSpec {
+  int A, K;          // agents, token types: token j = t*A*K + a*K + k
+  int state_index;   // token type of the state token
+  int own;           // attend_own_return_action
+  int has_window, window;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float x, float* p) { *p = x; }
+__device__ __forceinline__ void store(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ops/masks.py:visible for query (ti, ai, index ii) and key (tj, aj, kj, index jj)
+__device__ __forceinline__ bool visible(int ti, int ai, int ii, int tj, int aj, int kj, int jj,
+                                        const MaskSpec& s) {
+  const bool state_vis = (kj == s.state_index) && (tj <= ti);
+  bool base = (jj <= ii) && ((tj < ti) || (aj == ai));
+  if (s.own) base = base && !((tj < ti) && (aj != ai) && (kj != s.state_index));
+  bool out = state_vis || base;
+  if (s.has_window) out = out && (tj > ti - s.window);
+  return out;
+}
+
+// flash_attention.py:_dropout_keep: murmur3 finalizer over (seed, b, h, row, col)
+__device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t b, uint32_t h, uint32_t row,
+                                         uint32_t col, uint32_t threshold) {
+  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
+  x = x ^ (b * 0xC2B2AE3Du) ^ (h * 0x27D4EB2Fu) ^ seed;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x < threshold;
+}
+
+// 16 bytes of T, widened to fp32 and stored at dst (16-byte aligned).
+__device__ __forceinline__ void store_vec(const uint4& raw, float* dst, float) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
+}
+__device__ __forceinline__ void store_vec(const uint4& raw, float* dst, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+    const float2 a = __bfloat1622float2(h[i]);
+    const float2 b = __bfloat1622float2(h[i + 1]);
+    *reinterpret_cast<float4*>(dst + 2 * i) = make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// One tile of kTile rows of one head's D columns held in registers as raw
+// 16-byte loads, so the next tile's loads are in flight while the current
+// tile is computed. x points at the head's column 0 of row 0 (row stride
+// H, 16-byte aligned); rows >= n load as zeros.
+template <typename T, int D>
+struct TileRegs {
+  static constexpr int kElems = 16 / sizeof(T);
+  static constexpr int kVecRow = D / kElems;
+  static constexpr int kVecTile = kTile * kVecRow;
+  static constexpr int kVecThread = (kVecTile + kThreads - 1) / kThreads;
+  uint4 r[kVecThread];
+
+  __device__ __forceinline__ void load(const T* __restrict__ x, int r0, int n, int H) {
+#pragma unroll
+    for (int j = 0; j < kVecThread; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int row = i / kVecRow, c = (i % kVecRow) * kElems;
+      r[j] = make_uint4(0, 0, 0, 0);
+      if (i < kVecTile && r0 + row < n) r[j] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(r0 + row) * H + c));
+    }
+  }
+
+  template <int S>
+  __device__ __forceinline__ void store(float (*dst)[S]) const {
+#pragma unroll
+    for (int j = 0; j < kVecThread; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      if (i < kVecTile) store_vec(r[j], &dst[i / kVecRow][(i % kVecRow) * kElems], T());
+    }
+  }
+};
+
+// Rows [r0, r0 + kTile) straight into shared memory as fp32.
+template <typename T, int D, int S>
+__device__ __forceinline__ void load_tile(float (*dst)[S], const T* __restrict__ x, int r0, int n, int H) {
+  TileRegs<T, D> t;
+  t.load(x, r0, n, H);
+  t.store(dst);
+}
+
+// Keys [begin, end) that a query tile [q0, q0 + kTile) can see: none past
+// its last row's timestep, none before its first row's window. begin is
+// aligned down to the tile.
+__device__ __forceinline__ void key_range(int q0, int n, const MaskSpec& s, int* begin, int* end) {
+  const int ak = s.A * s.K;
+  const int t_lo = q0 / ak;
+  const int t_hi = (min(q0 + kTile, n) - 1) / ak;
+  const int e = min(n, (t_hi + 1) * ak);
+  int bg = s.has_window ? max(0, (t_lo - s.window + 1) * ak) : 0;
+  bg = min(bg, e - 1);
+  *begin = (bg / kTile) * kTile;
+  *end = e;
+}
+
+// ---------------------------------------------------------------------------
+// K3: forward
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const long long* __restrict__ seed_ptr, T* __restrict__ o, float* __restrict__ lse,
+                 int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
+                 uint32_t threshold, int use_dropout) {
+  constexpr int DP = D + 4;  // padded rows: float4 reads across lanes hit distinct banks
+  constexpr int DCH = (D + 31) / 32;
+  __shared__ __align__(16) float qs[kTile][D];
+  __shared__ __align__(16) float ks[kTile][DP];
+  __shared__ __align__(16) float vs[kTile][D];
+  __shared__ __align__(16) float ps[kWarps][kRows][kTile];
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * kRows;
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const uint32_t seed = (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;  // scores in log2 units: exp2 of them is exp of s * q.k
+
+  load_tile<T, D, D>(qs, q + base, q0, n, H);
+  int ti[kRows], ai[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = q0 + row0 + r;
+    ti[r] = i / ak;
+    ai[r] = (i / spec.K) % spec.A;
+  }
+  int n_begin, n_end;
+  key_range(q0, n, spec, &n_begin, &n_end);
+
+  float m[kRows], l[kRows], acc[kRows][DCH];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+  }
+
+  TileRegs<T, D> kr, vr;
+  kr.load(k + base, n_begin, n, H);
+  vr.load(v + base, n_begin, n, H);
+  for (int n0 = n_begin; n0 < n_end; n0 += kTile) {
+    __syncthreads();  // the previous tile is consumed (and qs is written)
+    kr.store(ks);
+    vr.store(vs);
+    __syncthreads();
+    if (n0 + kTile < n_end) {  // in flight during the compute below
+      kr.load(k + base, n0 + kTile, n, H);
+      vr.load(v + base, n0 + kTile, n, H);
+    }
+
+    const int j = n0 + lane;
+    const int tj = j / ak, aj = (j / spec.K) % spec.A, kj = j % spec.K;
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(&ks[lane][c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qq = *reinterpret_cast<const float4*>(&qs[row0 + r][c]);
+        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = q0 + row0 + r;
+      // keys past the range take no weight; masked keys take -1e30
+      float sr = -INFINITY;
+      if (j < n_end) sr = (i < n && visible(ti[r], ai[r], i, tj, aj, kj, j, spec)) ? s[r] * sl2 : kMaskNeg;
+      const float m_new = fmaxf(m[r], warp_max(sr));
+      const float alpha = exp2f(m[r] - m_new);
+      const float p = exp2f(sr - m_new);
+      l[r] = l[r] * alpha + p;
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) acc[r][c] *= alpha;
+      m[r] = m_new;
+      const bool keep = !use_dropout || (j < n_end && keep_bit(seed, b, h, i, j, threshold));
+      ps[warp][r][lane] = keep ? p : 0.f;
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int jj = 0; jj < kTile; jj += 4) {
+      float vv[4][DCH];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) {
+          const int oc = lane + 32 * c;
+          vv[u][c] = (oc < D) ? vs[jj + u][oc] : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 pp = *reinterpret_cast<const float4*>(&ps[warp][r][jj]);
+#pragma unroll
+        for (int c = 0; c < DCH; ++c)
+          acc[r][c] += pp.x * vv[0][c] + pp.y * vv[1][c] + pp.z * vv[2][c] + pp.w * vv[3][c];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float denom = warp_sum(l[r]);
+    const int i = q0 + row0 + r;
+    if (i >= n) continue;
+    if (lane == 0) lse[((size_t)b * heads + h) * n + i] = (m[r] + log2f(denom)) * kLn2;
+    T* ob = o + base + (size_t)i * H;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) {
+      const int oc = lane + 32 * c;
+      if (oc < D) store(acc[r][c] / denom * inv_keep, ob + oc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, part 1: dQ per query tile, and delta = rowsum(dO . O) for part 2
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+                    const long long* __restrict__ seed_ptr, T* __restrict__ dq, float* __restrict__ delta,
+                    int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
+                    uint32_t threshold, int use_dropout) {
+  constexpr int DP = D + 4;
+  constexpr int DCH = (D + 31) / 32;
+  __shared__ __align__(16) float qs[kTile][D];
+  __shared__ __align__(16) float dos[kTile][D];
+  __shared__ __align__(16) float ks[kTile][DP];
+  __shared__ __align__(16) float vs[kTile][DP];
+  __shared__ __align__(16) float dss[kWarps][kRows][kTile];
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * kRows;
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const size_t lrow = ((size_t)b * heads + h) * n;  // this (b, h)'s row of lse and delta
+  const uint32_t seed = (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;
+
+  load_tile<T, D, D>(qs, q + base, q0, n, H);
+  load_tile<T, D, D>(dos, dout + base, q0, n, H);
+  __syncthreads();
+
+  int ti[kRows], ai[kRows];
+  float lse2[kRows], dlt[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = q0 + row0 + r;
+    ti[r] = i / ak;
+    ai[r] = (i / spec.K) % spec.A;
+    float part = 0.f;
+    if (i < n)
+      for (int c = lane; c < D; c += 32) part += dos[row0 + r][c] * to_float(o[base + (size_t)i * H + c]);
+    dlt[r] = warp_sum(part);
+    lse2[r] = i < n ? lse[lrow + i] * kLog2e : 0.f;
+    if (lane == 0 && i < n) delta[lrow + i] = dlt[r];
+  }
+  int n_begin, n_end;
+  key_range(q0, n, spec, &n_begin, &n_end);
+
+  float acc[kRows][DCH];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+
+  TileRegs<T, D> kr, vr;
+  kr.load(k + base, n_begin, n, H);
+  vr.load(v + base, n_begin, n, H);
+  for (int n0 = n_begin; n0 < n_end; n0 += kTile) {
+    __syncthreads();
+    kr.store(ks);
+    vr.store(vs);
+    __syncthreads();
+    if (n0 + kTile < n_end) {
+      kr.load(k + base, n0 + kTile, n, H);
+      vr.load(v + base, n0 + kTile, n, H);
+    }
+
+    const int j = n0 + lane;
+    const int tj = j / ak, aj = (j / spec.K) % spec.A, kj = j % spec.K;
+    float s[kRows], dpd[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dpd[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(&ks[lane][c]);
+      const float4 vv = *reinterpret_cast<const float4*>(&vs[lane][c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qq = *reinterpret_cast<const float4*>(&qs[row0 + r][c]);
+        const float4 dd = *reinterpret_cast<const float4*>(&dos[row0 + r][c]);
+        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+        dpd[r] += dd.x * vv.x + dd.y * vv.y + dd.z * vv.z + dd.w * vv.w;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = q0 + row0 + r;
+      const bool vis = j < n_end && i < n && visible(ti[r], ai[r], i, tj, aj, kj, j, spec);
+      const float p = vis ? exp2f(s[r] * sl2 - lse2[r]) : 0.f;
+      float dp = dpd[r];
+      if (use_dropout) dp = (vis && keep_bit(seed, b, h, i, j, threshold)) ? dp * inv_keep : 0.f;
+      dss[warp][r][lane] = p * (dp - dlt[r]) * scale;
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int jj = 0; jj < kTile; jj += 4) {
+      float kv[4][DCH];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) {
+          const int oc = lane + 32 * c;
+          kv[u][c] = (oc < D) ? ks[jj + u][oc] : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 dd = *reinterpret_cast<const float4*>(&dss[warp][r][jj]);
+#pragma unroll
+        for (int c = 0; c < DCH; ++c)
+          acc[r][c] += dd.x * kv[0][c] + dd.y * kv[1][c] + dd.z * kv[2][c] + dd.w * kv[3][c];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = q0 + row0 + r;
+    if (i >= n) continue;
+    T* gb = dq + base + (size_t)i * H;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) {
+      const int oc = lane + 32 * c;
+      if (oc < D) store(acc[r][c], gb + oc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, part 2: dK and dV per key tile, over the query tiles that can see it
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, const long long* __restrict__ seed_ptr,
+                      T* __restrict__ dk, T* __restrict__ dv, int n, int H, int heads, MaskSpec spec,
+                      float scale, float inv_keep, uint32_t threshold, int use_dropout) {
+  constexpr int DP = D + 4;
+  constexpr int DCH = (D + 31) / 32;
+  __shared__ __align__(16) float ks[kTile][D];
+  __shared__ __align__(16) float vs[kTile][D];
+  __shared__ __align__(16) float qs[kTile][DP];
+  __shared__ __align__(16) float dos[kTile][DP];
+  __shared__ float lse2s[kTile];
+  __shared__ float dlts[kTile];
+  __shared__ __align__(16) float pds[kWarps][kRows][kTile];
+  __shared__ __align__(16) float dss[kWarps][kRows][kTile];
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * kRows;
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const size_t lrow = ((size_t)b * heads + h) * n;
+  const uint32_t seed = (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;
+
+  load_tile<T, D, D>(ks, k + base, k0, n, H);
+  load_tile<T, D, D>(vs, v + base, k0, n, H);
+  int tj[kRows], aj[kRows], kj[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = k0 + row0 + r;
+    tj[r] = j / ak;
+    aj[r] = (j / spec.K) % spec.A;
+    kj[r] = j % spec.K;
+  }
+  // queries that can see a key of this tile: timestep at least the key's,
+  // and within the window of the tile's last key
+  const int tj_lo = k0 / ak;
+  const int tj_hi = (min(k0 + kTile, n) - 1) / ak;
+  const int m_begin = ((tj_lo * ak) / kTile) * kTile;
+  const int m_end = spec.has_window ? min(n, (tj_hi + spec.window) * ak) : n;
+
+  float dk_acc[kRows][DCH], dv_acc[kRows][DCH];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+
+  // the next query tile: q, dO, and (first warp) its rows' lse and delta
+  TileRegs<T, D> qr, dr;
+  float lse_next = 0.f, dlt_next = 0.f;
+  auto prefetch = [&](int m0) {
+    qr.load(q + base, m0, n, H);
+    dr.load(dout + base, m0, n, H);
+    const int i = m0 + threadIdx.x;
+    if (threadIdx.x < kTile && i < n) {
+      lse_next = lse[lrow + i] * kLog2e;
+      dlt_next = delta[lrow + i];
+    } else {
+      lse_next = dlt_next = 0.f;
+    }
+  };
+  if (m_begin < m_end) prefetch(m_begin);
+  for (int m0 = m_begin; m0 < m_end; m0 += kTile) {
+    __syncthreads();
+    qr.store(qs);
+    dr.store(dos);
+    if (threadIdx.x < kTile) {
+      lse2s[threadIdx.x] = lse_next;
+      dlts[threadIdx.x] = dlt_next;
+    }
+    __syncthreads();
+    if (m0 + kTile < m_end) prefetch(m0 + kTile);
+
+    const int i = m0 + lane;  // this lane's query
+    const int ti = i / ak, ai = (i / spec.K) % spec.A;
+    float s[kRows], dpd[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dpd[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      const float4 qq = *reinterpret_cast<const float4*>(&qs[lane][c]);
+      const float4 dd = *reinterpret_cast<const float4*>(&dos[lane][c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 kk = *reinterpret_cast<const float4*>(&ks[row0 + r][c]);
+        const float4 vv = *reinterpret_cast<const float4*>(&vs[row0 + r][c]);
+        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+        dpd[r] += dd.x * vv.x + dd.y * vv.y + dd.z * vv.z + dd.w * vv.w;
+      }
+    }
+    const float lse_i = lse2s[lane], dlt_i = dlts[lane];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int j = k0 + row0 + r;
+      const bool vis = i < n && j < n && visible(ti, ai, i, tj[r], aj[r], kj[r], j, spec);
+      const float p = vis ? exp2f(s[r] * sl2 - lse_i) : 0.f;
+      float pd = p, dp = dpd[r];
+      if (use_dropout) {
+        const bool keep = vis && keep_bit(seed, b, h, i, j, threshold);
+        pd = keep ? p * inv_keep : 0.f;
+        dp = keep ? dp * inv_keep : 0.f;
+      }
+      pds[warp][r][lane] = pd;
+      dss[warp][r][lane] = p * (dp - dlt_i) * scale;
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int ii = 0; ii < kTile; ii += 4) {
+      float dov[4][DCH], qv[4][DCH];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) {
+          const int oc = lane + 32 * c;
+          dov[u][c] = (oc < D) ? dos[ii + u][oc] : 0.f;
+          qv[u][c] = (oc < D) ? qs[ii + u][oc] : 0.f;
+        }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 pp = *reinterpret_cast<const float4*>(&pds[warp][r][ii]);
+        const float4 dd = *reinterpret_cast<const float4*>(&dss[warp][r][ii]);
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) {
+          dv_acc[r][c] += pp.x * dov[0][c] + pp.y * dov[1][c] + pp.z * dov[2][c] + pp.w * dov[3][c];
+          dk_acc[r][c] += dd.x * qv[0][c] + dd.y * qv[1][c] + dd.z * qv[2][c] + dd.w * qv[3][c];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = k0 + row0 + r;
+    if (j >= n) continue;
+    T* kb = dk + base + (size_t)j * H;
+    T* vb = dv + base + (size_t)j * H;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) {
+      const int oc = lane + 32 * c;
+      if (oc < D) {
+        store(dk_acc[r][c], kb + oc);
+        store(dv_acc[r][c], vb + oc);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *o, *dout, *lse, *seed;
+  void *out, *lse_out, *dq, *dk, *dv, *delta;
+  int B, n, H, heads;
+  MaskSpec spec;
+  float scale, inv_keep;
+  uint32_t threshold;
+  int use_dropout;
+};
+
+template <typename T, int D>
+cudaError_t run_fwd(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.heads, (a.n + kTile - 1) / kTile);
+  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const long long*>(a.seed), static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
+      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t run_bwd(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.heads, (a.n + kTile - 1) / kTile);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const long long*>(a.seed), static_cast<T*>(a.dq), static_cast<float*>(a.delta),
+      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const long long*>(a.seed),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.n, a.H, a.heads, a.spec, a.scale,
+      a.inv_keep, a.threshold, a.use_dropout);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(bool backward, const Args& a, cudaStream_t stream) {
+  switch (a.H / a.heads) {
+    case 16: return backward ? run_bwd<T, 16>(a, stream) : run_fwd<T, 16>(a, stream);
+    case 32: return backward ? run_bwd<T, 32>(a, stream) : run_fwd<T, 32>(a, stream);
+    case 64: return backward ? run_bwd<T, 64>(a, stream) : run_fwd<T, 64>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Args make_args(int B, int n, int H, int heads, int A, int K, int state_index, int own,
+               int has_window, int window, float dropout_p, unsigned threshold) {
+  Args a = {};
+  a.B = B;
+  a.n = n;
+  a.H = H;
+  a.heads = heads;
+  a.spec = MaskSpec{A, K, state_index, own, has_window, window};
+  a.scale = 1.0f / sqrtf((float)(H / heads));
+  a.use_dropout = dropout_p > 0.f;
+  a.inv_keep = a.use_dropout ? 1.0f / (1.0f - dropout_p) : 1.0f;
+  a.threshold = threshold;
+  return a;
+}
+
+bool bad_shape(int B, int n, int H, int heads, int A, int K) {
+  return B <= 0 || n <= 0 || heads <= 0 || H % heads != 0 || A <= 0 || K <= 0;
+}
+
+}  // namespace
+
+// K3. q, k, v, out [B, n, H] contiguous and 16-byte aligned on the device,
+// of one type: float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse [B, heads, n] float32; seed
+// one int64 on the device (its low 32 bits key the dropout hash; read only
+// when dropout_p > 0 but always a valid pointer). threshold =
+// min(int((1 - dropout_p) * 2^32), 2^32 - 1). Returns the cudaError_t of
+// the launch.
+extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, const void* seed,
+                                  void* out, void* lse, int B, int n, int H, int heads, int A,
+                                  int K, int state_index, int own, int has_window, int window,
+                                  float dropout_p, unsigned threshold, int is_bf16, void* stream) {
+  if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.seed = seed;
+  a.out = out;
+  a.lse_out = lse;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(false, a, s) : dispatch<float>(false, a, s));
+}
+
+// K4. As K3, plus o and dout [B, n, H] (the forward's output and its
+// gradient), lse from K3; writes dq, dk, dv [B, n, H] in the inputs' type
+// and uses delta [B, heads, n] float32 as scratch. Two launches on one
+// stream; returns the first error.
+extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, const void* lse, const void* seed, void* dq,
+                                  void* dk, void* dv, void* delta, int B, int n, int H, int heads,
+                                  int A, int K, int state_index, int own, int has_window, int window,
+                                  float dropout_p, unsigned threshold, int is_bf16, void* stream) {
+  if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = lse;
+  a.seed = seed;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.delta = delta;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(true, a, s) : dispatch<float>(true, a, s));
+}

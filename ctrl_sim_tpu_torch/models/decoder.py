@@ -1,27 +1,71 @@
-"""Multi-agent causal decoder, streaming part (port of
-``ctrl_sim_tpu/models/decoder.py``: ``KVCache``, ``memory_kv`` and
-``decode_step_groups``; reference modules/decoder.py:8-79).
+"""Multi-agent causal decoder and heads (port of
+``ctrl_sim_tpu/models/decoder.py``; reference modules/decoder.py:8-79).
 
-The decoder layers attend over a ring-buffer KV cache through the
-decode-attention kernel (ops/attention.py) at every width, and over the
-static episode memory through pre-projected cross-attention K/V. Heads:
-1000-way action categorical (read from the rtg-token stream), 350 bins x 3
-return-to-go components (from the state-token stream), and the future-state
-head that training reads.
+Two execution paths:
+
+- ``forward``: the full-sequence decode of training. On a CUDA tensor with
+  ``model.use_flash_attention`` the self-attention goes through the flash
+  kernels K3/K4 (ops/flash_attention.py) with the mask evaluated in the
+  kernel; otherwise through the plain einsum path with the dense
+  [N, N] mask of ops/masks.py.
+- ``decode_step_groups``: the streaming rollout's incremental decode over a
+  ring-buffer KV cache through the decode-attention kernel K1
+  (ops/attention.py), with the static episode memory's cross-attention K/V
+  projected once.
+
+Heads: 1000-way action categorical (read from the rtg-token stream), 350
+bins x 3 return-to-go components (from the state-token stream), and 32
+future (x, y) per token (from the action stream).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.models.layers import MLPLayer, TransformerDecoderLayer
 from ctrl_sim_tpu_torch.ops import masks
+from ctrl_sim_tpu_torch.ops.flash_attention import MaskSpec
 
 Tensor = torch.Tensor
+
+
+class DecoderOutput(NamedTuple):
+    action_preds: Tensor  # [B, A, T, 1000]
+    rtg_preds: Tensor | None  # [B, A, T, 350*3], bins-major
+    state_preds: Tensor | None  # [B, A, T, T_ctx*2]
+
+
+def _checkpointed(layer: nn.Module, generator: torch.Generator | None, *args) -> Tensor:
+    """``layer(*args)`` whose activations are recomputed in the backward
+    (``model.remat``). The recomputation must draw the same dropout masks
+    and flash seeds: the default generators are replayed by
+    ``torch.utils.checkpoint`` itself, an explicit ``generator`` is put back
+    to its state before the first call for the recomputation, then to where
+    it had got to."""
+    if generator is None:
+        return checkpoint(layer, *args, use_reentrant=False)
+    before = generator.get_state()
+    first = True
+
+    def run(*a):
+        nonlocal first
+        if first:
+            first = False
+            return layer(*a, generator=generator)
+        now = generator.get_state()
+        generator.set_state(before)
+        try:
+            return layer(*a, generator=generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 @dataclass
@@ -61,7 +105,7 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(
                 H, mc.num_heads, mc.dim_feedforward, dtype,
-                cross_score_dtype=score, device=device,
+                cross_score_dtype=score, dropout=mc.dropout, device=device,
             )
             for _ in range(mc.num_decoder_layers)
         )
@@ -74,6 +118,44 @@ class Decoder(nn.Module):
             self.predict_future_states = MLPLayer(
                 H, H, wc.train_context_length * 2, dtype, device
             )
+
+    def forward(
+        self,
+        tokens: Tensor,  # [B, T*A*K, H] after embed_ln
+        memory: Tensor,  # [B, M, H]
+        memory_valid: Tensor,  # [B, M] bool
+        num_timesteps: int,
+        deterministic: bool = True,
+        window: int | None = None,
+        generator: torch.Generator | None = None,
+    ) -> DecoderOutput:
+        mc, wc = self.cfg.model, self.cfg.waymo
+        K, A, T = mc.num_token_types, wc.max_num_agents, num_timesteps
+        mask = spec = None
+        if mc.use_flash_attention and tokens.is_cuda:
+            # the mask is evaluated in the kernel, never stored
+            spec = MaskSpec(A, K, mc.state_token_index, mc.attend_own_return_action, window)
+        else:
+            mask = masks.multi_agent_causal_mask(
+                T, A, K, mc.state_token_index, mc.attend_own_return_action, window, device=tokens.device
+            )
+        x = tokens
+        for layer in self.layers:
+            args = (x, memory, mask, memory_valid, deterministic, spec)
+            x = _checkpointed(layer, generator, *args) if mc.remat else layer(*args, generator=generator)
+
+        B, H = x.shape[0], x.shape[-1]
+        streams = x.reshape(B, T * A, K, H)
+
+        def head(mlp: nn.Module, stream: int) -> Tensor:  # -> [B, A, T, D]
+            y = mlp(streams[:, :, stream])
+            return y.reshape(B, T, A, y.shape[-1]).transpose(1, 2)
+
+        return DecoderOutput(
+            action_preds=head(self.predict_action, 1 if K == 3 else 0),
+            rtg_preds=head(self.predict_rtg, 0) if mc.predict_rtg else None,
+            state_preds=head(self.predict_future_states, 2) if mc.predict_future_states else None,
+        )
 
     def memory_kv(self, memory: Tensor) -> list[tuple[Tensor, Tensor]]:
         """Each layer's cross-attention K/V of the static episode memory,

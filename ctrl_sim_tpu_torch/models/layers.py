@@ -2,10 +2,15 @@
 
 The same computation as the JAX modules, which replicate torch's
 ``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` defaults
-(post-LayerNorm, ReLU feedforward) and the reference's ``MLPLayer``. Params
-are fp32; ``Dense`` and ``Embed`` compute in the config's compute dtype, as
-flax's ``dtype=`` does. Submodule names follow the JAX param tree so that
-``params.from_flax_params`` maps one onto the other.
+(post-LayerNorm, ReLU feedforward, dropout 0.1) and the reference's
+``MLPLayer``. Params are fp32; ``Dense`` and ``Embed`` compute in the
+config's compute dtype, as flax's ``dtype=`` does. Submodule names follow
+the JAX param tree so that ``params.from_flax_params`` maps one onto the
+other.
+
+Dropout runs when a call passes ``deterministic=False``; its keep masks are
+drawn from the caller's ``torch.Generator`` (``generator``, on the tensors'
+device), the counterpart of flax's ``dropout`` RNG stream.
 """
 
 from __future__ import annotations
@@ -17,11 +22,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctrl_sim_tpu_torch.ops.attention import cached_decode_attention
+from ctrl_sim_tpu_torch.ops.flash_attention import MaskSpec, flash_mha
 
 Tensor = torch.Tensor
 
 # torch nn.LayerNorm default eps (the reference's modules all use it)
 LN_EPS = 1e-5
+
+
+def dropout(x: Tensor, rate: float, generator: torch.Generator | None) -> Tensor:
+    """flax ``nn.Dropout`` in training mode: each element kept with
+    probability 1 - rate (uniform draws from ``generator``), kept values
+    scaled by 1 / (1 - rate), dropped ones 0. ``F.dropout`` takes no
+    generator, hence the keep mask drawn here."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Linear):
@@ -73,23 +90,42 @@ class MLPLayer(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head attention with boolean masking (True = attend); the plain
-    einsum path of the JAX module. ``score_dtype`` is the dtype of the stored
-    score matrix: float32 is exact, bfloat16 rounds the stored scores and
-    exp outputs while the softmax reductions stay fp32."""
+    """Multi-head attention with boolean masking (True = attend).
 
-    def __init__(self, d_model: int, num_heads: int, dtype, score_dtype=torch.float32, device=None):
+    Two routes, as in the JAX module: with a ``mask_spec`` the
+    multi-agent causal self-attention of the training decoder goes through
+    ``ops.flash_attention.flash_mha`` (kernels K3/K4 on the card), its
+    dropout keyed by a seed drawn from the generator; otherwise the plain
+    einsum path, with dropout on the attention weights. ``score_dtype`` is
+    the dtype of the einsum path's stored score matrix: float32 is exact,
+    bfloat16 rounds the stored scores and exp outputs while the softmax
+    reductions stay fp32."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype, score_dtype=torch.float32,
+                 dropout: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = dtype
         self.score_dtype = score_dtype
+        self.dropout = dropout
         self.q_proj = Dense(d_model, d_model, dtype, device)
         self.k_proj = Dense(d_model, d_model, dtype, device)
         self.v_proj = Dense(d_model, d_model, dtype, device)
         self.out_proj = Dense(d_model, d_model, dtype, device)
 
-    def forward(self, query: Tensor, key: Tensor, value: Tensor, mask=None, key_padding_mask=None) -> Tensor:
-        return self.attend(query, self.k_proj(key), self.v_proj(value), mask, key_padding_mask)
+    def forward(self, query: Tensor, key: Tensor, value: Tensor, mask=None, key_padding_mask=None,
+                deterministic: bool = True, generator: torch.Generator | None = None,
+                mask_spec: MaskSpec | None = None) -> Tensor:
+        q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
+        if mask_spec is not None:
+            rate = 0.0 if deterministic else self.dropout
+            seed = None
+            if rate > 0.0:
+                seed = torch.randint(0, 2**32, (1,), generator=generator, device=q.device)
+            out = flash_mha(q, k, v, mask_spec, self.num_heads, rate, seed).to(self.compute_dtype)
+        else:
+            out = self.attend_impl(q, k, v, mask, key_padding_mask, deterministic, generator)
+        return self.out_proj(out)
 
     def project_qkv(self, x: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Q, K, V of the same input in one [D, 3D] product."""
@@ -103,7 +139,8 @@ class MultiHeadAttention(nn.Module):
         out = self.attend_impl(self.q_proj(query), k, v, mask, key_padding_mask)
         return self.out_proj(out)
 
-    def attend_impl(self, q: Tensor, k: Tensor, v: Tensor, mask=None, key_padding_mask=None) -> Tensor:
+    def attend_impl(self, q: Tensor, k: Tensor, v: Tensor, mask=None, key_padding_mask=None,
+                    deterministic: bool = True, generator: torch.Generator | None = None) -> Tensor:
         B, Tq, D = q.shape
         Tk = k.shape[1]
         hd = D // self.num_heads
@@ -130,46 +167,92 @@ class MultiHeadAttention(nn.Module):
             e = torch.exp((scores - mx).float()).to(sd)
             den = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
             weights = (e / den.to(sd)).to(dt)
+        if not deterministic:
+            weights = dropout(weights, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v.to(dt))
         return out.reshape(B, Tq, D).to(dt)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """torch nn.TransformerEncoderLayer defaults: post-LN, ReLU FF (eval mode)."""
+    """torch nn.TransformerEncoderLayer defaults: post-LN, ReLU FF, dropout
+    after the attention, inside the FF and after it."""
 
-    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dtype, device=None):
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dtype,
+                 dropout: float = 0.1, device=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, device=device)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, dropout=dropout, device=device)
         self.norm1 = LayerNorm(d_model, dtype, device)
         self.linear1 = Dense(d_model, dim_feedforward, dtype, device)
         self.linear2 = Dense(dim_feedforward, d_model, dtype, device)
         self.norm2 = LayerNorm(d_model, dtype, device)
 
-    def forward(self, src: Tensor, key_padding_mask: Tensor | None = None) -> Tensor:
-        attn = self.self_attn(src, src, src, key_padding_mask=key_padding_mask)
-        src = self.norm1(src + attn)
-        ff = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+    def forward(self, src: Tensor, key_padding_mask: Tensor | None = None,
+                deterministic: bool = True, generator: torch.Generator | None = None) -> Tensor:
+        drop = (lambda x: x) if deterministic else (lambda x: dropout(x, self.dropout, generator))  # noqa: E731
+        attn = self.self_attn(src, src, src, key_padding_mask=key_padding_mask,
+                              deterministic=deterministic, generator=generator)
+        src = self.norm1(src + drop(attn))
+        ff = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(ff))
 
 
 class TransformerDecoderLayer(nn.Module):
     """torch nn.TransformerDecoderLayer defaults: self-attn -> cross-attn -> FF,
-    each with residual + post-LN; only the incremental ``decode_step`` of the
-    streaming rollout is ported."""
+    each with residual + post-LN and dropout. ``forward`` is the
+    full-sequence training pass; ``decode_step`` the incremental decode of
+    the streaming rollout."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int, dtype,
-                 cross_score_dtype=torch.float32, device=None):
+                 cross_score_dtype=torch.float32, dropout: float = 0.1, device=None):
         super().__init__()
         self.num_heads = num_heads
-        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, device=device)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dtype, dropout=dropout, device=device)
         self.cross_attn = MultiHeadAttention(
-            d_model, num_heads, dtype, score_dtype=cross_score_dtype, device=device
+            d_model, num_heads, dtype, score_dtype=cross_score_dtype, dropout=dropout, device=device
         )
         self.linear1 = Dense(d_model, dim_feedforward, dtype, device)
         self.linear2 = Dense(dim_feedforward, d_model, dtype, device)
         self.norm1 = LayerNorm(d_model, dtype, device)
         self.norm2 = LayerNorm(d_model, dtype, device)
         self.norm3 = LayerNorm(d_model, dtype, device)
+
+    def _after_self_attn(
+        self,
+        tgt: Tensor,
+        sa: Tensor,  # self-attention output, after its out projection
+        memory: Tensor | None,
+        memory_key_padding_mask: Tensor | None,
+        deterministic: bool,
+        generator: torch.Generator | None = None,
+        mem_kv: tuple[Tensor, Tensor] | None = None,  # pre-projected cross-attention K/V
+    ) -> Tensor:
+        drop = (lambda x: x) if deterministic else (lambda x: dropout(x, self.dropout, generator))  # noqa: E731
+        x = self.norm1(tgt + drop(sa))
+        if mem_kv is not None:
+            mk, mv = mem_kv
+            ca = self.cross_attn.attend(x, mk, mv, key_padding_mask=memory_key_padding_mask)
+        else:
+            ca = self.cross_attn(x, memory, memory, key_padding_mask=memory_key_padding_mask,
+                                 deterministic=deterministic, generator=generator)
+        x = self.norm2(x + drop(ca))
+        ff = self.linear2(drop(F.relu(self.linear1(x))))
+        return self.norm3(x + drop(ff))
+
+    def forward(
+        self,
+        tgt: Tensor,  # [B, N, H]
+        memory: Tensor,  # [B, M, H]
+        tgt_mask: Tensor | None = None,  # [N, N] bool, the plain route
+        memory_key_padding_mask: Tensor | None = None,  # [B, M] bool
+        deterministic: bool = True,
+        tgt_mask_spec: MaskSpec | None = None,  # the flash route (kernels K3/K4)
+        generator: torch.Generator | None = None,
+    ) -> Tensor:
+        sa = self.self_attn(tgt, tgt, tgt, mask=tgt_mask, deterministic=deterministic,
+                            generator=generator, mask_spec=tgt_mask_spec)
+        return self._after_self_attn(tgt, sa, memory, memory_key_padding_mask, deterministic, generator)
 
     def decode_step(
         self,
@@ -197,9 +280,6 @@ class TransformerDecoderLayer(nn.Module):
             mask,
             self.num_heads,
         )
-        x = self.norm1(tgt + self.self_attn.out_proj(sa))
-        mk, mv = mem_kv
-        ca = self.cross_attn.attend(x, mk, mv, key_padding_mask=memory_valid)
-        x = self.norm2(x + ca)
-        ff = self.linear2(F.relu(self.linear1(x)))
-        return self.norm3(x + ff)
+        return self._after_self_attn(
+            tgt, self.self_attn.out_proj(sa), None, memory_valid, True, mem_kv=mem_kv
+        )

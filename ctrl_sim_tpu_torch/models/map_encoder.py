@@ -23,16 +23,18 @@ class MapEncoder(nn.Module):
         self.compute_dtype = dtype
         self.road_pts_encoder = MLPLayer(mc.map_attr, H, H, dtype, device)
         self.map_seeds = nn.Parameter(torch.zeros(1, 1, H, device=device))
-        self.road_pts_attn_layer = MultiHeadAttention(H, mc.num_heads, dtype, device=device)
+        self.road_pts_attn_layer = MultiHeadAttention(H, mc.num_heads, dtype, dropout=mc.dropout, device=device)
         self.norm1 = LayerNorm(H, dtype, device)
         self.map_feats = MLPLayer(H, H, H, dtype, device)
         self.norm2 = LayerNorm(H, dtype, device)
         self.road_type_encoder = MLPLayer(mc.num_road_types, H, H, dtype, device)
         self.road_road_type_encoder = MLPLayer(2 * H, H, H, dtype, device)
 
-    def forward(self, road_points: Tensor, road_types: Tensor) -> tuple[Tensor, Tensor]:
+    def forward(self, road_points: Tensor, road_types: Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> tuple[Tensor, Tensor]:
         """road_points [B, P, L, 3], road_types [B, P, 8] ->
-        (polyline tokens [B, P, H], valid mask [B, P])."""
+        (polyline tokens [B, P, H], valid mask [B, P]); dropout on the
+        pooling attention's weights unless ``deterministic``."""
         B, P, L, _ = road_points.shape
         dt = self.compute_dtype
         # a polyline is valid iff any point is; fully empty rows get point 0
@@ -47,7 +49,8 @@ class MapEncoder(nn.Module):
         pts = pts.reshape(B * P, L, H)
         seed = self.map_seeds.to(dt).expand(B * P, 1, H)
         pooled = self.road_pts_attn_layer(
-            seed, pts, pts, key_padding_mask=point_valid.reshape(B * P, L)
+            seed, pts, pts, key_padding_mask=point_valid.reshape(B * P, L),
+            deterministic=deterministic, generator=generator,
         )
         pooled = self.norm1(pooled)
         pooled = self.norm2(pooled + self.map_feats(pooled))

@@ -1,0 +1,301 @@
+"""Training flash attention under the multi-agent causal mask (kernels K3
+and K4).
+
+Port of ``ctrl_sim_tpu/ops/flash_attention.py``: multi-head attention of
+the full training sequence (T = steps x agents x token types) with the
+visibility predicate of ``ops/masks.py`` evaluated from token indices,
+never stored, and attention dropout keyed by position through a murmur3
+hash, so the backward regenerates the same keep mask with any tiling. On a
+CUDA tensor the wrappers launch the hand-written Hopper kernels of
+``csrc/flash_attention.cu`` (built by nvcc, bound with ctypes) or raise:
+``flash_mha_fwd`` the forward K3, ``flash_mha_bwd`` the backward K4, and
+``flash_mha`` joins them in a ``torch.autograd.Function``. On a CPU tensor
+they run the plain PyTorch version ``flash_mha_reference``, which the CPU
+tests hold against the JAX kernel and ``chip_smoke.py`` holds the CUDA
+kernels against on the card.
+
+Semantics kept from the TPU kernels: scores s * q.k in fp32 with s =
+1/sqrt(d), -1e30 on masked scores (and on keys past T), ``lse = m + log(l)``
+per row from the softmax before dropout, dropout after normalization
+(``keep ? p / (1 - p_drop) : 0``), dq in q's type and dk/dv accumulated in
+fp32 and returned in k's type. The keep bit is bit-identical to the JAX
+``_dropout_keep``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from ctrl_sim_tpu_torch.ops import build
+from ctrl_sim_tpu_torch.ops.masks import token_coords, visible
+
+Tensor = torch.Tensor
+
+_NEG = -1e30  # large-negative instead of -inf: keeps padded rows NaN-free
+_U32 = 0xFFFFFFFF
+HEAD_DIMS = (16, 32, 64)  # head widths the kernels are instantiated for
+
+
+class MaskSpec(NamedTuple):
+    """The multi-agent causal mask, described by its layout. Token index
+    j = t*(A*K) + a*K + k."""
+
+    num_agents: int
+    num_types: int
+    state_index: int
+    attend_own_return_action: bool
+    window: int | None
+
+
+def block_mask(rows: Tensor, cols: Tensor, seq_len: int, spec: MaskSpec) -> Tensor:
+    """Visibility of key indices ``cols`` from query indices ``rows``
+    (broadcast), plus bounds masking of rows and cols past ``seq_len``."""
+    ti, ai, _ = token_coords(rows, spec.num_agents, spec.num_types)
+    tj, aj, kj = token_coords(cols, spec.num_agents, spec.num_types)
+    vis = visible(
+        ti=ti, ai=ai, ii=rows, tj=tj, aj=aj, kj=kj, jj=cols,
+        state_index=spec.state_index,
+        attend_own_return_action=spec.attend_own_return_action,
+        window=spec.window,
+    )
+    return vis & (rows < seq_len) & (cols < seq_len)
+
+
+def keep_threshold(keep_prob: float) -> int:
+    """The uint32 threshold under which a hash keeps its position."""
+    return min(int(keep_prob * 2**32), 2**32 - 1)
+
+
+def _mul32(x: Tensor, c: int) -> Tensor:
+    """The low 32 bits of x * c for 0 <= x < 2^32, in int64 without
+    overflow: the 16-bit halves of c each give a product below 2^48."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def dropout_keep_reference(seed, b, h, rows: Tensor, cols: Tensor, keep_prob: float) -> Tensor:
+    """The keep mask of the TPU kernels' ``_dropout_keep``: the murmur3
+    finalizer over (seed, batch, head, row, col) in uint32 arithmetic,
+    emulated in int64 with every product and xor cut to its low 32 bits.
+    ``seed``, ``b`` and ``h`` are ints or int64 tensors that broadcast with
+    ``rows`` and ``cols``; returns the boolean keep mask."""
+    dev = rows.device
+    as64 = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev) & _U32  # noqa: E731
+    x = _mul32(as64(rows), 0x9E3779B1) ^ _mul32(as64(cols), 0x85EBCA77)
+    x = x ^ _mul32(as64(b), 0xC2B2AE3D) ^ _mul32(as64(h), 0x27D4EB2F) ^ as64(seed)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x < keep_threshold(keep_prob)
+
+
+def flash_mha_reference(
+    q: Tensor,  # [B, T, D] post-projection, heads packed in D
+    k: Tensor,
+    v: Tensor,
+    spec: MaskSpec,
+    num_heads: int,
+    dropout_p: float = 0.0,
+    seed=None,  # int or int64 tensor [1]; only read when dropout_p > 0
+) -> tuple[Tensor, Tensor]:
+    """The plain PyTorch version of kernels K3/K4: dense masked attention in
+    fp32 einsums. Returns (out [B, T, D] in q's dtype, lse [B, heads, T]
+    fp32); differentiable by autograd, which gives K4's gradients."""
+    B, T, D = q.shape
+    d = D // num_heads
+    idx = torch.arange(T, device=q.device)
+    mask = block_mask(idx[:, None], idx[None, :], T, spec)  # [T, T]
+    qh, kh, vh = (x.float().reshape(B, T, num_heads, d) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / math.sqrt(d))
+    s = torch.where(mask, s, _NEG)
+    m = s.detach().amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l))[..., 0]
+    p = e / l
+    if dropout_p > 0.0:
+        seed = 0 if seed is None else seed
+        heads = torch.arange(num_heads, device=q.device)[:, None, None]
+        keep = torch.stack([
+            dropout_keep_reference(seed, b, heads, idx[:, None], idx[None, :], 1.0 - dropout_p)
+            for b in range(B)
+        ])
+        p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    return out.reshape(B, T, D).to(q.dtype), lse
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, num_heads: int) -> None:
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"expected q, k, v [B, T, D] of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    D = q.shape[-1]
+    if D % num_heads != 0 or D // num_heads not in HEAD_DIMS:
+        raise ValueError(f"head width D/num_heads = {D}/{num_heads} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k and v lie on different devices: {devices}")
+
+
+def _seed_tensor(seed, device: torch.device) -> Tensor:
+    """The dropout seed as one int64 on ``device`` (low 32 bits used)."""
+    if seed is None:
+        return torch.zeros(1, dtype=torch.int64, device=device)
+    t = torch.as_tensor(seed, dtype=torch.int64, device=device).reshape(-1)
+    if t.numel() != 1:
+        raise ValueError("seed must hold one value")
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = build.load("flash_attention.cu")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # B, T, H, heads, A, K, state_index, own, has_window, window
+    shape = [i32] * 10
+    # dropout_p, threshold, is_bf16, stream
+    tail = [ctypes.c_float, ctypes.c_uint, i32, ptr]
+    fwd = lib.ctrl_sim_flash_fwd
+    fwd.restype = i32
+    fwd.argtypes = [ptr] * 6 + shape + tail  # q, k, v, seed, out, lse
+    bwd = lib.ctrl_sim_flash_bwd
+    bwd.restype = i32
+    bwd.argtypes = [ptr] * 11 + shape + tail  # q, k, v, o, do, lse, seed, dq, dk, dv, delta
+    return fwd, bwd
+
+
+def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, dropout_p: float) -> list:
+    B, T, D = q.shape
+    window = spec.window
+    return [
+        B, T, D, num_heads, spec.num_agents, spec.num_types, spec.state_index,
+        int(spec.attend_own_return_action), int(window is not None), int(window or 0),
+        float(dropout_p), keep_threshold(1.0 - dropout_p), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    ]
+
+
+def _require_cuda(*tensors: Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"no flash attention kernel for device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash attention kernels take contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash attention kernels load 16 bytes at a time: align tensors to 16 bytes")
+
+
+def flash_mha_fwd(
+    q: Tensor, k: Tensor, v: Tensor, spec: MaskSpec, num_heads: int,
+    dropout_p: float = 0.0, seed=None,
+) -> tuple[Tensor, Tensor]:
+    """Kernel K3: (out [B, T, D], lse [B, heads, T] fp32). CUDA tensors go
+    through the hand-written kernel (every launch adds one to
+    ``flash_mha_fwd.launches``); CPU tensors through the plain version."""
+    _check(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed)
+    _require_cuda(q, k, v)
+    seed_t = _seed_tensor(seed, q.device)
+    B, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    fwd, _ = _kernels()
+    with torch.cuda.device(q.device):
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+    if err != 0:
+        raise RuntimeError(f"flash attention forward kernel launch failed: cudaError_t {err}")
+    flash_mha_fwd.launches += 1
+    return out, lse
+
+
+flash_mha_fwd.launches = 0
+
+
+def flash_mha_bwd(
+    q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor, lse: Tensor,
+    spec: MaskSpec, num_heads: int, dropout_p: float = 0.0, seed=None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Kernel K4: (dq, dk, dv) of ``out = flash_mha(q, k, v)`` for the
+    output gradient ``dout``, recomputing the weights from ``lse``. CUDA
+    tensors go through the hand-written kernels (every launch of the pair
+    adds one to ``flash_mha_bwd.launches``); CPU tensors through autograd of
+    the plain version."""
+    _check(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o, _ = flash_mha_reference(*leaves, spec, num_heads, dropout_p, seed)
+            return torch.autograd.grad(o, leaves, dout.to(o.dtype))
+    _require_cuda(q, k, v, out, dout, lse)
+    if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("out and dout must have q's dtype, lse float32")
+    seed_t = _seed_tensor(seed, q.device)
+    B, T, _ = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    _, bwd = _kernels()
+    with torch.cuda.device(q.device):
+        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), seed_t.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  delta.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: cudaError_t {err}")
+    flash_mha_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_mha_bwd.launches = 0
+
+
+class _FlashMHA(torch.autograd.Function):
+    """K3 forward, K4 backward (the JAX custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, spec, num_heads, dropout_p):
+        out, lse = flash_mha_fwd(q, k, v, spec, num_heads, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.args = (spec, num_heads, dropout_p)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        spec, num_heads, dropout_p = ctx.args
+        grad = grad.to(q.dtype).contiguous()
+        if grad.data_ptr() % 16:  # a view at an odd offset: the kernels load 16 bytes at a time
+            grad = grad.clone()
+        dq, dk, dv = flash_mha_bwd(q, k, v, out, grad, lse, spec, num_heads, dropout_p, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_mha(
+    q: Tensor,  # [B, T, D] post-projection, heads packed in D
+    k: Tensor,
+    v: Tensor,
+    spec: MaskSpec,
+    num_heads: int,
+    dropout_p: float = 0.0,
+    seed=None,  # int or int64 tensor [1]; the same seed gives the same keep mask
+) -> Tensor:
+    """Multi-head attention under the multi-agent causal mask, O(T) memory
+    on the card. Differentiable: the forward is K3 and the backward K4 on
+    CUDA tensors; on CPU tensors both are the plain version."""
+    _check(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed)[0]
+    return _FlashMHA.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), _seed_tensor(seed, q.device),
+        spec, num_heads, float(dropout_p),
+    )

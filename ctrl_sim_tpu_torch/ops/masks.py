@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ctrl_sim_tpu_torch.device import resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -52,7 +54,7 @@ def stream_step_masks(
     num_types: int,
     state_index: int,
     attend_own_return_action: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Per-step masks of the fused 2-pass streaming decode.
 
@@ -60,7 +62,9 @@ def stream_step_masks(
     at step t holds label t - ((t - s) mod window), or -1 before genesis.
     Returns ``(mask1 [T, 2A, N], mask2 [T, A, N])`` int8, N = window *
     num_types * num_agents: pass 1 = the t-1 action group + the t state
-    group, pass 2 = the t rtg group (token type 1, the default layout)."""
+    group, pass 2 = the t rtg group (token type 1, the default layout).
+    On the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     A, K, w = num_agents, num_types, window
     ar = lambda n: torch.arange(n, device=device)  # noqa: E731
     ts = ar(steps)
@@ -100,3 +104,33 @@ def stream_step_masks(
     t2 = ts[:, None].expand(steps, A)
     mask2 = build(t2, torch.full((steps, A), 1, device=device))
     return mask1, mask2
+
+
+def token_coords(index: Tensor, num_agents: int, num_types: int) -> tuple[Tensor, Tensor, Tensor]:
+    """(t, a, k) coordinates of token indices."""
+    t = index // (num_agents * num_types)
+    a = (index // num_types) % num_agents
+    k = index % num_types
+    return t, a, k
+
+
+def multi_agent_causal_mask(
+    num_steps: int,
+    num_agents: int,
+    num_types: int,
+    state_index: int = 0,
+    attend_own_return_action: bool = False,
+    window: int | None = None,
+    device: torch.device | str | None = None,
+) -> Tensor:
+    """Dense [N, N] boolean mask (True = attend), N = steps*agents*types,
+    on the card unless ``device`` says otherwise. Equivalent to
+    get_causal_mask (utils/train_utils.py:82-130) with 0 -> True and
+    -inf -> False."""
+    idx = torch.arange(num_steps * num_agents * num_types, device=resolve_device(device))
+    t, a, k = token_coords(idx, num_agents, num_types)
+    return visible(
+        t[:, None], a[:, None], idx[:, None],
+        t[None, :], a[None, :], k[None, :], idx[None, :],
+        state_index, attend_own_return_action, window,
+    )

@@ -39,7 +39,7 @@ def _defaults(cls):
 @pytest.mark.parametrize(
     "name",
     ["SimConfig", "PhysicsConfig", "RewardConfig", "WaymoDatasetConfig", "ModelConfig",
-     "TiltConfig", "PolicyConfig", "EvalConfig"],
+     "TrainConfig", "TiltConfig", "PolicyConfig", "EvalConfig"],
 )
 def test_config_fields_and_defaults_equal_jax(name):
     ours = {k: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
@@ -213,7 +213,7 @@ def test_transforms_match_jax():
         t2n(ttf.undiscretize_rtgs(T(bins), tcfg.waymo)), np.asarray(jtf.undiscretize_rtgs(bins, wc)), atol=1e-5
     )
     np.testing.assert_allclose(
-        t2n(ttf.get_tilt_logits(-3.0, 2.0, 0.5, tcfg.waymo)),
+        t2n(ttf.get_tilt_logits(-3.0, 2.0, 0.5, tcfg.waymo, device="cpu")),
         np.asarray(jtf.get_tilt_logits(-3.0, 2.0, 0.5, wc)), atol=1e-6,
     )
     sb = scenes(jcfg, num_scenes=2)

@@ -1,0 +1,115 @@
+"""The plain version of kernels K3/K4 (``ctrl_sim_tpu_torch/ops/flash_attention.py``)
+held against the JAX ``flash_mha`` run in Pallas interpret mode: the
+dropout keep bits and the multi-agent causal mask bit for bit, the forward
+(output, lse) within 2e-5 and dq/dk/dv within 5e-5 over the five layouts of
+``tests/test_flash_attention.py``, at dropout 0 and at dropout 0.1 with one
+seed (the keep masks are identical, so the same bounds hold). All fp32 on
+the CPU; the CUDA kernels are held against this plain version on the card
+by ``tests/test_torch_kernels.py``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ctrl_sim_tpu.ops import flash_attention as jfa
+from ctrl_sim_tpu.ops import masks as jmasks
+from ctrl_sim_tpu_torch.ops import flash_attention as tfa
+from ctrl_sim_tpu_torch.ops import masks as tmasks
+
+torch.set_num_threads(2)
+
+FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
+LAYOUTS = [  # (A, K, steps, heads, head_dim, strict, window, JAX block_q)
+    (3, 3, 4, 2, 4, False, None, 8),  # CtRL-Sim layout
+    (3, 3, 4, 2, 4, True, 2, 8),  # strict + sliding window
+    (2, 2, 5, 4, 8, False, None, 16),  # IL-style 2-token layout
+    (4, 1, 6, 2, 4, False, 3, 8),  # trajeglish action-only
+    (3, 3, 4, 2, 4, False, None, 7),  # block_q doesn't divide T: padded block
+]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345, 2**31 + 7, 2**32 - 1])
+def test_dropout_keep_bit_identical(seed):
+    rows = np.arange(300, dtype=np.int32)[:, None]
+    cols = np.arange(2304 - 257, 2304, dtype=np.int32)[None, :]
+    for b in (0, 3, 15):
+        for h in (0, 7):
+            for keep_prob in (0.9, 0.5):
+                want = np.asarray(jfa._dropout_keep(
+                    jnp.uint32(seed), jnp.int32(b), h, jnp.asarray(rows), jnp.asarray(cols), keep_prob))
+                got = tfa.dropout_keep_reference(
+                    seed, b, h, torch.as_tensor(rows), torch.as_tensor(cols), keep_prob).numpy()
+                np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "steps,agents,types,own,window",
+    [(4, 3, 3, False, None), (4, 3, 3, True, None), (5, 2, 2, False, 2), (6, 4, 1, True, 3), (32, 24, 3, False, None)],
+)
+def test_multi_agent_causal_mask_bit_equal(steps, agents, types, own, window):
+    want = np.asarray(jmasks.multi_agent_causal_mask(steps, agents, types, 0, own, window))
+    got = tmasks.multi_agent_causal_mask(steps, agents, types, 0, own, window, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    # the kernels' predicate on token indices is the same mask
+    n = steps * agents * types
+    idx = torch.arange(n)
+    spec = tfa.MaskSpec(agents, types, 0, own, window)
+    np.testing.assert_array_equal(tfa.block_mask(idx[:, None], idx[None, :], n, spec).numpy(), want)
+
+
+def _inputs(T, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(2, T, D)).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("A,K,steps,nh,hd,strict,window,bq", LAYOUTS)
+def test_reference_matches_jax_flash(dropout_p, A, K, steps, nh, hd, strict, window, bq):
+    T, D = A * K * steps, nh * hd
+    q, k, v, g = _inputs(T, D, seed=T + D)
+    jspec = jfa.MaskSpec(A, K, 0, strict, window)
+    seed = jnp.asarray([987654321], jnp.uint32)
+
+    def f(q, k, v):
+        return jfa.flash_mha(q, k, v, jspec, nh, dropout_p=dropout_p, seed=seed, block_q=bq, interpret=True)
+
+    jout, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    _, jlse = jfa._fwd_call(jspec, nh, dropout_p, bq, True, *(jnp.asarray(x) for x in (q, k, v)), seed)
+
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out, lse = tfa.flash_mha_reference(*leaves, tfa.MaskSpec(A, K, 0, strict, window), nh, dropout_p, 987654321)
+    grads = torch.autograd.grad(out, leaves, torch.tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse), atol=FWD_ATOL, rtol=0)
+    for name, a, b in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL, rtol=0, err_msg=f"d{name}")
+
+
+def test_wrappers_on_cpu_use_plain_version():
+    spec = tfa.MaskSpec(3, 3, 0, False, None)
+    q, k, v, g = (torch.tensor(x) for x in _inputs(36, 32))
+    launches = (tfa.flash_mha_fwd.launches, tfa.flash_mha_bwd.launches)
+    out, lse = tfa.flash_mha_fwd(q, k, v, spec, 2, 0.1, 5)
+    want, want_lse = tfa.flash_mha_reference(q, k, v, spec, 2, 0.1, 5)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    dq, dk, dv = tfa.flash_mha_bwd(q, k, v, out, g, lse, spec, 2, 0.1, 5)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = tfa.flash_mha(*leaves, spec, 2, 0.1, 5)
+    for a, b in zip((dq, dk, dv), torch.autograd.grad(o, leaves, g)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert (tfa.flash_mha_fwd.launches, tfa.flash_mha_bwd.launches) == launches
+
+
+@pytest.mark.parametrize(
+    "shape,heads,dtype,error",
+    [((2, 36, 12), 2, torch.float32, ValueError),  # head width 6
+     ((2, 36, 256), 2, torch.float32, ValueError),  # head width 128
+     ((2, 36, 32), 2, torch.float16, TypeError)],
+)
+def test_wrapper_rejects(shape, heads, dtype, error):
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(error):
+        tfa.flash_mha(x, x, x, tfa.MaskSpec(3, 3, 0, False, None), heads)

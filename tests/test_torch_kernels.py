@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card:
+K1 (decode attention) and K3/K4 (training flash attention).
 
 Marked ``cuda``: they skip without a CUDA device (here, and in any CPU run),
 and run on the card with
@@ -11,7 +12,7 @@ This file imports nothing of JAX, so it also runs where JAX is absent.
 import pytest
 import torch
 
-from ctrl_sim_tpu_torch.ops import attention
+from ctrl_sim_tpu_torch.ops import attention, flash_attention
 from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
 
 pytestmark = pytest.mark.cuda
@@ -70,3 +71,63 @@ def test_decode_attention_kernel_rejects_non_contiguous_or_misaligned(cuda):
     k = flat[1:].view(2, 48, 64)  # contiguous, 4 bytes off alignment
     with pytest.raises(ValueError):
         attention.cached_decode_attention(q, k, k, mask, 4)
+
+
+def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    T, D = steps * A * K, heads * d
+    return [torch.randn((B, T, D), generator=gen, device=cuda).to(dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,atol,gtol", [(torch.bfloat16, 2e-2, 5e-2), (torch.float32, 1e-4, 1e-4)])
+@pytest.mark.parametrize(
+    "B,steps,A,K,heads,d,own,window",
+    [
+        (2, 8, 24, 3, 8, 32, False, None),  # the training layout, 8 steps
+        (2, 5, 23, 3, 8, 32, False, None),  # T = 345: ragged last tile
+        (2, 6, 4, 3, 4, 64, True, None),  # d = 64, strict mode
+        (3, 7, 3, 3, 2, 16, False, 3),  # d = 16, sliding window
+        (2, 6, 4, 2, 4, 16, False, None),  # 2-token layout
+    ],
+)
+def test_flash_attention_kernels_match_plain(cuda, dropout_p, dtype, atol, gtol, B, steps, A, K, heads, d, own, window):
+    spec = flash_attention.MaskSpec(A, K, 0, own, window)
+    q, k, v, do = _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, steps * A + d)
+    seed = torch.tensor([1234567], device=cuda)
+    f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches
+    out, lse = flash_attention.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed)
+    dq, dk, dv = flash_attention.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed)
+    assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    want, want_lse = flash_attention.flash_mha_reference(*leaves, spec, heads, dropout_p, seed)
+    grads = torch.autograd.grad(want, leaves, do.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=0)
+    for got, ref in zip((dq, dk, dv), grads):
+        assert got.dtype == dtype
+        scale = ref.abs().max().item()
+        assert (got.float() - ref).abs().max().item() <= gtol * scale
+
+
+def test_flash_attention_autograd_uses_both_kernels(cuda):
+    spec = flash_attention.MaskSpec(6, 3, 0, False, None)
+    q, k, v, do = (x.requires_grad_(True) if i < 3 else x
+                   for i, x in enumerate(_flash_inputs(cuda, 2, 4, 6, 3, 4, 16, torch.float32, 0)))
+    f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches
+    out = flash_attention.flash_mha(q, k, v, spec, 4, 0.1, torch.tensor([9], device=cuda))
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_flash_attention_kernels_reject_non_contiguous_or_misaligned(cuda):
+    spec = flash_attention.MaskSpec(3, 3, 0, False, None)
+    q = torch.randn((2, 36, 32), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_mha_fwd(q, q.transpose(0, 1).contiguous().transpose(0, 1), q, spec, 2)
+    flat = torch.randn(2 * 36 * 32 + 1, device=cuda)
+    k = flat[1:].view(2, 36, 32)  # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError):
+        flash_attention.flash_mha_fwd(q, k, q, spec, 2)

@@ -27,7 +27,7 @@ torch.set_num_threads(2)
 )
 def test_stream_step_masks_bit_equal(steps, window, agents, types, own):
     j1, j2 = jmasks.stream_step_masks(steps, window, agents, types, 0, own)
-    t1, t2 = tmasks.stream_step_masks(steps, window, agents, types, 0, own)
+    t1, t2 = tmasks.stream_step_masks(steps, window, agents, types, 0, own, device="cpu")
     assert t1.dtype == torch.int8 and t2.dtype == torch.int8
     np.testing.assert_array_equal(t2n(t1), np.asarray(j1))
     np.testing.assert_array_equal(t2n(t2), np.asarray(j2))

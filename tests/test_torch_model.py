@@ -106,7 +106,7 @@ def test_streaming_interface_matches_jax(setup, premask):
         _check(tv, jv, "memory V")
 
     tcache = tm.new_cache(B, A)
-    m1, m2 = stream_step_masks(STEPS, window, A, mc.num_token_types, 0)
+    m1, m2 = stream_step_masks(STEPS, window, A, mc.num_token_types, 0, device="cpu")
     prev_a = torch.zeros((B, A), dtype=torch.long)
     prev_e = torch.zeros((B, A))
     for t, (jx, jrtg, jy, jact) in enumerate(want["steps"]):
