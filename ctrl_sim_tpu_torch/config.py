@@ -254,8 +254,8 @@ class TrainConfig:
     replay_ratio: float = 0.5
     save_dir: str = "checkpoints"
     keep_last_n: int = 2
-    # metrics always go to save_dir/metrics.jsonl; wandb mirrors them when
-    # track is set and the package is importable
+    # metrics always go to save_dir/metrics.jsonl; the JAX package's wandb
+    # mirror (track) is not ported
     track: bool = False
     log_grad_norms: bool = False
 

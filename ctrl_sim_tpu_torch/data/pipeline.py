@@ -42,17 +42,21 @@ class TrainDraws(NamedTuple):
 
     origin_t: Tensor  # [E] window start, uniform in [0, max_t]
     origin_agent: Tensor  # [E] origin agent, uniform over the candidates (0 if none)
-    perm: Tensor  # [E, K] shuffle of the selected slots, a permutation of range(K)
+    perm: Tensor  # [E, K] shuffle key of the selected slots, a permutation of range(K)
 
 
 def compute_rtgs(cfg: Config, offline: OfflineArrays) -> Tensor:
     """rewards8 -> normalized 3-component RTGs [E, A, T, 3]
-    (dataset_ctrl_sim.py:93-105)."""
+    (dataset_ctrl_sim.py:93-105). As in the JAX pipeline, the reversed
+    cumulative sum runs over axis 1 of the batch [E, A, T, 5], the agents:
+    the JAX function applies the one-scene ``reverse_cumsum_rtg`` to the
+    whole batch (ROADMAP §3 keeps the question of the time axis open)."""
     rewards5 = tf.compute_rewards5(
         offline.states[..., -1], offline.rewards8, offline.veh_edge_dist_rewards,
         offline.veh_veh_dist_rewards, cfg.waymo,
     )
-    return tf.normalize_rtgs(tf.select_rtg_components(tf.reverse_cumsum_rtg(rewards5)), cfg.waymo)
+    rtg5 = torch.flip(torch.cumsum(torch.flip(rewards5, [1]), dim=1), [1])
+    return tf.normalize_rtgs(tf.select_rtg_components(rtg5), cfg.waymo)
 
 
 def build_train_sample(
@@ -115,7 +119,7 @@ def build_train_sample(
         if not wc.episode_start_normalization:
             cand = cand & (w_states[:, :, 0, -1] > 0)
         origin_agent = torch.where(cand, u[:, 1 : 1 + A], -1.0).argmax(dim=-1)
-        perm = torch.argsort(u[:, 1 + A :], dim=-1)  # the shuffle of the selected slots
+        perm = torch.argsort(u[:, 1 + A :], dim=-1)  # the shuffle key of the selected slots
 
     crop_pos = states[:, :, 0, :2] if wc.episode_start_normalization else w_states[:, :, 0, :2]
     sel = tf.select_relevant_agents_idx(crop_pos, filtered, origin_agent, wc, perm=perm)

@@ -195,11 +195,11 @@ def select_relevant_agents_idx(
 ) -> SelectedAgents:
     """Fixed-shape select_relevant_agents (dataset.py:278-319): the <= K
     agents nearest to the origin agent within the distance threshold,
-    nearest first, invalid slots at the back. In training a shuffle moves
-    the valid slots among themselves, so that slots are not
-    distance-ordered: ``perm`` (``data/pipeline.py`` draws it from its
-    generator). ``perm = arange(K)`` keeps the order, which is what the JAX
-    function's shuffle does whatever its key."""
+    nearest first, invalid slots at the back. In training ``perm`` is the
+    shuffle's key (``data/pipeline.py`` draws it from its generator),
+    applied as the JAX function applies its permutation: the sort is keyed
+    by perm's values, which sorts the valid slots back into distance order
+    whatever perm is (ROADMAP §3 keeps the question open)."""
     E, A = agent_valid.shape
     K = cfg.max_num_agents
     if A < K:
@@ -213,12 +213,9 @@ def select_relevant_agents_idx(
     top = order[:, :K]
     top_valid = torch.gather(in_range, 1, top)
     if perm is not None:
-        # the valid slots in the order perm visits them, the invalid ones after
-        # (the JAX function keys the sort by perm's values rather than their
-        # positions, which sorts them back: its shuffle leaves the order as is)
+        # valid entries keyed by perm's values, invalid ones after them
         perm = perm.long()
-        pos = torch.arange(K, device=perm.device).expand(E, K)
-        keyed = torch.where(torch.gather(top_valid, 1, perm), pos, K + pos)
+        keyed = torch.where(torch.gather(top_valid, 1, perm), perm, K + perm)
         order2 = torch.gather(perm, 1, torch.argsort(keyed, dim=-1))
         top = torch.gather(top, 1, order2)
         top_valid = torch.gather(top_valid, 1, order2)

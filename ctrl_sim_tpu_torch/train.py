@@ -113,7 +113,7 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[train] resuming from step {mgr.latest_step()}")
         state = mgr.restore(state)
 
-    logger = MetricsLogger(save_dir, track=cfg.train.track, config=cfg)
+    logger = MetricsLogger(save_dir, track=cfg.train.track)
     train_step = trainer.make_train_step()
     grad_norm_fn = trainer.make_grad_norm_fn() if cfg.train.log_grad_norms else None
 

@@ -1,54 +1,39 @@
-"""Experiment logging: JSONL metrics sink + optional wandb mirror (port of
+"""Experiment logging: the JSONL metrics sink (port of
 ``ctrl_sim_tpu/utils/logging.py``).
 
-The durable sink is a local ``metrics.jsonl``, one JSON object per logged
-step. wandb mirrors it when ``train.track`` is set and the package is
-importable; it is never a hard dependency. ``grad_norms`` is the
-reference's per-parameter gradient 2-norm payload
-(models/ctrl_sim.py:231-238).
+The sink is a local ``metrics.jsonl``, one JSON object per logged step.
+The JAX package's optional wandb mirror is not ported: ``train.track``
+prints that and logs to the sink alone. ``grad_norms`` is the reference's
+per-parameter gradient 2-norm payload (models/ctrl_sim.py:231-238).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import time
-from typing import Any, Mapping
+from typing import Mapping
 
 import torch
 
 
 class MetricsLogger:
-    """Append-only JSONL metrics sink with an optional wandb mirror."""
+    """Append-only JSONL metrics sink."""
 
-    def __init__(self, save_dir: str, track: bool = False, config: Any = None):
+    def __init__(self, save_dir: str, track: bool = False):
         os.makedirs(save_dir, exist_ok=True)
         self.path = os.path.join(save_dir, "metrics.jsonl")
         self._fh = open(self.path, "a", buffering=1)
-        self._wandb = None
         if track:
-            try:
-                import wandb  # optional, absent on most machines
-            except ImportError as e:
-                print(f"[log] wandb unavailable ({e}); JSONL sink only")
-            else:
-                self._wandb = wandb
-                cfg = None if config is None else (
-                    dataclasses.asdict(config) if dataclasses.is_dataclass(config) else dict(config))
-                wandb.init(project="ctrl-sim-tpu", config=cfg)
+            print("[log] the wandb mirror is not ported; JSONL sink only")
 
     def log(self, step: int, metrics: Mapping[str, float]) -> None:
         row = {"step": int(step), "ts": time.time()}
         row.update({k: float(v) for k, v in metrics.items()})
         self._fh.write(json.dumps(row) + "\n")
-        if self._wandb is not None:
-            self._wandb.log(dict(metrics), step=int(step))
 
     def close(self) -> None:
         self._fh.close()
-        if self._wandb is not None:
-            self._wandb.finish()
 
 
 def grad_norms(grads: Mapping[str, torch.Tensor]) -> dict:

@@ -5,16 +5,11 @@ computation and the training transforms within 1e-5, and ``build_train_batch``
 with the JAX draws replayed (integer fields exact, float fields within
 1e-5) and, without replay, in distribution.
 
-Two faults of the JAX package are recorded here rather than copied:
-
-- its ``pipeline.compute_rtgs`` calls ``reverse_cumsum_rtg`` (documented for
-  one scene, [A, T, C]) on the whole batch [E, A, T, C], so the cumulative
-  sum runs over agents instead of time. The port sums over time, and its
-  RTGs are held against the JAX transforms applied per scene;
-- the train-time shuffle of ``select_relevant_agents_idx`` sorts by the
-  permutation's values where it means their positions, so it leaves the
-  slots distance-ordered whatever its key. The port shuffles, and replays
-  the JAX draws with the identity permutation."""
+The port computes what the JAX pipeline computes, including two of its
+behaviours that ROADMAP §3 records as open questions: ``compute_rtgs`` sums
+the returns over agents (axis 1 of the batch), and the train-time shuffle of
+``select_relevant_agents_idx`` leaves the slots in distance order whatever
+its key."""
 
 import dataclasses
 
@@ -27,9 +22,7 @@ import torch
 from ctrl_sim_tpu.data import transforms as jtf
 from ctrl_sim_tpu.data.datagen import generate_offline_data as jax_replay
 from ctrl_sim_tpu.data.pipeline import build_train_batch as jax_build_batch
-from ctrl_sim_tpu.data.pipeline import build_train_sample as jax_build_sample
 from ctrl_sim_tpu.data.pipeline import compute_rtgs as jax_compute_rtgs
-from ctrl_sim_tpu.data.pipeline import goals_from_scenario as jax_goals
 from ctrl_sim_tpu_torch.data import transforms as ttf
 from ctrl_sim_tpu_torch.data.datagen import OfflineArrays, generate_offline_data
 from ctrl_sim_tpu_torch.data.pipeline import TrainDraws, build_train_batch, compute_rtgs
@@ -63,6 +56,11 @@ def _per_scene_rtgs(cfg, off) -> np.ndarray:
     return np.asarray(jax.vmap(one)(off.states, off.rewards8, off.veh_edge_dist_rewards, off.veh_veh_dist_rewards))
 
 
+def _jax_perms(keys, K) -> torch.Tensor:
+    """The shuffle permutations the JAX ``build_train_sample`` draws from its keys."""
+    return T(np.stack([np.asarray(jax.random.permutation(jax.random.split(k, 3)[2], K)) for k in keys]))
+
+
 def test_offline_replay_matches_jax(replay):
     *_, joff, toff = replay
     np.testing.assert_array_equal(t2n(toff.states[..., -1]), joff.states[..., -1])
@@ -71,12 +69,22 @@ def test_offline_replay_matches_jax(replay):
 
 
 def test_compute_rtgs_matches_jax_per_scene(replay):
+    """The batched ``compute_rtgs`` against the JAX pipeline's, and the
+    port's one-scene transforms against the JAX ones applied per scene; the
+    two differ in the axis of the cumulative sum (ROADMAP §3)."""
     jcfg, tcfg, *_, joff, toff = replay
     off = OfflineArrays(*(T(x) for x in joff))
-    want = _per_scene_rtgs(jcfg, joff)
+    want = np.asarray(jax_compute_rtgs(jcfg, joff))
     np.testing.assert_allclose(t2n(compute_rtgs(tcfg, off)), want, atol=1e-5, rtol=0)
-    # the JAX pipeline's batched call sums over agents instead (see the module docstring)
-    assert not np.allclose(np.asarray(jax_compute_rtgs(jcfg, joff)), want, atol=1e-3)
+    per_scene = _per_scene_rtgs(jcfg, joff)
+
+    def port_per_scene(states, r8, ve, vv):
+        r5 = ttf.compute_rewards5(states[..., -1], r8, ve, vv, tcfg.waymo)
+        return ttf.normalize_rtgs(ttf.select_rtg_components(ttf.reverse_cumsum_rtg(r5)), tcfg.waymo)
+
+    got = port_per_scene(off.states, off.rewards8, off.veh_edge_dist_rewards, off.veh_veh_dist_rewards)
+    np.testing.assert_allclose(t2n(got), per_scene, atol=1e-5, rtol=0)
+    assert not np.allclose(want, per_scene, atol=1e-3)
 
 
 @pytest.mark.parametrize("variant", [{}, {"waymo.remove_shaped_goal": False, "waymo.remove_shaped_veh_reward": True,
@@ -124,27 +132,21 @@ def test_agent_selection_and_normalization_match_jax():
                                              keep_mask=None if km is None else T(km))
         for name in want._fields:
             np.testing.assert_array_equal(t2n(getattr(got, name)), np.asarray(getattr(want, name)))
-    # the JAX shuffle leaves the order as it is, whatever its key: the
-    # identity permutation replays it
+    # the JAX shuffle replayed with its own permutations, and a random
+    # permutation: both leave the distance order as it is
     keys = jax.random.split(jax.random.PRNGKey(7), E)
     want = jax.vmap(lambda x, v, o, k: jtf.select_relevant_agents_idx(x, v, o, wc, shuffle_key=k))(
         pos, valid, origin, keys)
     unshuffled = jax.vmap(lambda x, v, o: jtf.select_relevant_agents_idx(x, v, o, wc))(pos, valid, origin)
-    got = ttf.select_relevant_agents_idx(T(pos), T(valid), T(origin), tcfg.waymo,
-                                         perm=torch.arange(K).expand(E, K))
+    perms = T(np.stack([np.asarray(jax.random.permutation(k, K)) for k in keys]))
+    assert not torch.equal(perms, torch.arange(K).expand(E, K))
+    got = ttf.select_relevant_agents_idx(T(pos), T(valid), T(origin), tcfg.waymo, perm=perms)
+    shuffled = ttf.select_relevant_agents_idx(T(pos), T(valid), T(origin), tcfg.waymo,
+                                              perm=T(np.stack([rng.permutation(K) for _ in range(E)])))
     for name in want._fields:
         np.testing.assert_array_equal(np.asarray(getattr(want, name)), np.asarray(getattr(unshuffled, name)))
         np.testing.assert_array_equal(t2n(getattr(got, name)), np.asarray(getattr(want, name)))
-    # a random permutation moves the valid slots among themselves
-    plain = ttf.select_relevant_agents_idx(T(pos), T(valid), T(origin), tcfg.waymo)
-    shuffled = ttf.select_relevant_agents_idx(T(pos), T(valid), T(origin), tcfg.waymo,
-                                              perm=T(np.stack([rng.permutation(K) for _ in range(E)])))
-    assert torch.equal(shuffled.slot_valid, plain.slot_valid)
-    assert not torch.equal(shuffled.gather_idx, plain.gather_idx)
-    for e in range(E):
-        v = plain.slot_valid[e]
-        assert sorted(shuffled.gather_idx[e][v].tolist()) == sorted(plain.gather_idx[e][v].tolist())
-        assert shuffled.gather_idx[e][shuffled.new_origin_idx[e]] == origin[e]
+        np.testing.assert_array_equal(t2n(getattr(shuffled, name)), np.asarray(getattr(want, name)))
     states = rng.normal(size=(E, A, Tn, 8)).astype(np.float32)
     np.testing.assert_allclose(
         t2n(ttf.gather_agents(T(states), got)),
@@ -169,13 +171,13 @@ def test_agent_selection_and_normalization_match_jax():
 
 
 def _jax_draws(key, jb):
-    """The window starts and origin agents the JAX ``build_train_batch`` drew from
-    ``key``, read back from its batch, and the identity permutation for its
-    shuffle (which keeps the order; see the module docstring)."""
+    """The draws of the JAX ``build_train_batch`` from ``key``: the window
+    starts and origin agents read back from its batch, and the shuffle
+    permutations drawn again from its keys."""
     K = jb["gather_idx"].shape[1]
     gi, oi = np.asarray(jb["gather_idx"]), np.asarray(jb["origin_idx"])
-    perm = torch.arange(K).expand(E, K)
-    return jax.random.split(key, E), TrainDraws(T(np.asarray(jb["timesteps"])[:, 0]), T(gi[np.arange(E), oi]), perm)
+    perm = _jax_perms(jax.random.split(key, E), K)
+    return TrainDraws(T(np.asarray(jb["timesteps"])[:, 0]), T(gi[np.arange(E), oi]), perm)
 
 
 @pytest.mark.parametrize("episode_start", [False, True])
@@ -185,24 +187,15 @@ def test_build_train_batch_replays_jax_draws(replay, episode_start):
     _, _, sb, js, joff, _ = replay
     key = jax.random.PRNGKey(3)
     jb = jax_build_batch(jcfg, key, js, joff)
-    keys, draws = _jax_draws(key, jb)
-    got = build_train_batch(tcfg, torch_scenario(sb), OfflineArrays(*(T(x) for x in joff)), draws=draws)
-    # every field but the RTGs against the JAX ``build_train_batch`` itself
+    got = build_train_batch(tcfg, torch_scenario(sb), OfflineArrays(*(T(x) for x in joff)),
+                            draws=_jax_draws(key, jb))
+    assert got.keys() == jb.keys()
     for k in jb:
-        if k == "rtgs":
-            continue
         # rtol 1e-6 for the -1e6 sentinel of dead agents, whose rotated
         # coordinates are ~1e6 (an fp32 ulp there is 0.06)
         kw = {"atol": 0, "rtol": 0} if k in INT_FIELDS else {"atol": 1e-5, "rtol": 1e-6}
         np.testing.assert_allclose(t2n(got[k]).astype(np.float64), np.asarray(jb[k]).astype(np.float64),
                                    err_msg=k, **kw)
-    # the RTGs against the JAX ``build_train_sample`` fed per-scene RTGs
-    rtgs = _per_scene_rtgs(jcfg, joff)
-    s = jax.tree.map(np.asarray, js)
-    want = jax.vmap(lambda k, st, a, r, g, av, rp, rt, rv: jax_build_sample(jcfg, k, st, a, r, g, av, rp, rt, rv))(
-        keys, joff.states, joff.actions, rtgs, jax_goals(js), s.agent_valid, s.road_points, s.road_types,
-        s.road_valid)
-    np.testing.assert_array_equal(t2n(got["rtgs"]), np.asarray(want["rtgs"]))
 
 
 def _same_mean(a: np.ndarray, b: np.ndarray) -> bool:
@@ -214,8 +207,8 @@ def _same_mean(a: np.ndarray, b: np.ndarray) -> bool:
 def test_build_train_batch_draws_in_distribution(replay):
     """Without replay, the port's own draws over many copies of the same
     scenes: per scene, the window start and the origin agent agree with the
-    JAX draws in mean, and the shuffle puts the origin in each of the valid
-    slots alike (the JAX one leaves it in slot 0)."""
+    JAX draws in mean, and the origin lands in slot 0 as in the JAX batch
+    (the nearest agent to itself; the shuffle keeps the distance order)."""
     jcfg, tcfg, sb, _, joff, _ = replay
     reps = 256
     idx = np.repeat(np.arange(E), reps)
@@ -238,10 +231,8 @@ def test_build_train_batch_draws_in_distribution(replay):
         for name, j, t in (("window start", jt[s], tt[s]), ("origin agent", ja[s], ta[s])):
             assert _same_mean(j, t), (name, s, j.mean(), t.mean())
             assert set(np.unique(t)) <= set(range(int(j.max()) + 1)) | set(np.unique(j)), (name, s)
-        # uniform over the valid slots: mean (n - 1) / 2 given n valid slots
-        assert (tslot[s] < tvalid[s]).all()
-        se = np.sqrt(((tvalid[s] ** 2 - 1) / 12).mean() / reps)
-        assert abs(tslot[s].mean() - ((tvalid[s] - 1) / 2).mean()) <= 5 * se + 1e-9, s
+    assert (tslot == 0).all()
+    assert (tvalid >= 1).all()
 
 
 def test_store_round_trip_and_sampling(tmp_path):

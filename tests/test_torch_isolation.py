@@ -1,8 +1,6 @@
 """The port imports only what the machine with the card has: the stdlib,
 numpy and torch (triton only inside a function), never JAX and nothing of
-the JAX package ``ctrl_sim_tpu``. The one optional package, wandb (the
-metrics mirror that ``train.track`` asks for), is imported inside a
-function too, where its absence is handled."""
+the JAX package ``ctrl_sim_tpu``."""
 
 import ast
 import subprocess
@@ -15,7 +13,6 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "ctrl_sim_tpu_torch"
 REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "ctrl_sim_tpu")
 ALLOWED_TOP = {"numpy", "torch", "ctrl_sim_tpu_torch"}
-INSIDE_FUNCTIONS_ONLY = {"triton", "wandb"}
 
 
 def _sources():
@@ -76,7 +73,7 @@ def test_import_statements_name_only_stdlib_numpy_torch(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            if top in INSIDE_FUNCTIONS_ONLY:
-                assert node not in top_level, f"{path}: import {top} inside a function only"
+            if top == "triton":
+                assert node not in top_level, f"{path}: import triton inside a function only"
                 continue
             assert top in ALLOWED_TOP or top in sys.stdlib_module_names, f"{path}: imports {name}"
