@@ -11,13 +11,16 @@ code is 0 only when every phase passed:
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one nvcc per source, all started together), with
    ptxas's registers and spills;
-3. kernel K1 (decode attention) against its plain PyTorch version on the
-   card: the rollout's shapes (256 lanes, Q = 32 and 16 queries, N = 1536
-   keys, H = 256 = 8 heads x 32) in bf16 and f32, a narrow case (H = 64 =
-   4 x 16, Q = 12) and a mask with fully masked rows; tolerance 2e-2
-   absolute in bf16, 1e-4 in f32. Times (CUDA events, median of 30
-   launches after warm-up) of the kernel, the plain version and one
-   library call, F.scaled_dot_product_attention, kept as a yardstick only;
+3. kernels K1 (decode attention) and K2 (decode attention over the int8
+   cache) against their plain PyTorch versions on the card: the rollout's
+   shapes (256 lanes, Q = 32 and 16 queries, N = 1536 keys, H = 256 = 8
+   heads x 32) in bf16 and f32, a narrow case (H = 64 = 4 x 16, Q = 12) and
+   a mask with fully masked rows; tolerance 2e-2 absolute in bf16, 1e-4 in
+   f32; and ``quantize_rows`` on the card equal to its CPU result. Times
+   (CUDA events, median of 30 launches after warm-up) of each kernel, its
+   plain version and one library call, F.scaled_dot_product_attention,
+   kept as a yardstick only (for K2 over the K/V dequantized to q's dtype
+   beforehand: not the same function, and it reads twice K2's bytes);
 4. kernels K3/K4 (training flash attention, forward and backward) against
    the plain version on the card: output, lse, dq, dk and dv at the train
    step's shape (B = 16, T = 32 x 24 x 3 = 2304, H = 256 = 8 x 32, bf16,
@@ -27,20 +30,25 @@ code is 0 only when every phase passed:
    |grad| on gradients in bf16, 1e-4 and 1e-4 in f32. Times of the kernels,
    the plain version and the library yardstick (SDPA with the boolean
    [T, T] mask, at dropout 0) on the train step's B = 16 inputs;
-5. small-input agreement: the streaming rollout at a toy width on the card,
-   replaying the draws of the same rollout on the CPU, agrees with it;
-6. the rollout at full width: random weights from a seeded generator
+5. small-input agreement: the streaming rollout at a toy width with
+   contacts on, with the bf16-width cache (K1) and the int8 cache (K2), on
+   the card, replaying the draws of the same rollout on the CPU, agrees
+   with it;
+6. the rollouts at full width: random weights from a seeded generator
    (hidden 256, 8 heads, FF 1024, 2 + 4 layers, bf16 compute, bf16
    cross-attention scores), 256 synthetic scenes of 12 agents packed into
-   16 slots, ``run_streaming`` for 90 steps with contacts off; every output
-   finite, and K1 launched exactly 2 passes x 4 layers x 90 steps = 720
-   times;
+   16 slots, ``run_streaming`` for 90 steps with contacts on (bench.py's
+   default), first with the bf16 cache and then, on the same scenes and
+   weights, with the int8 cache (``BENCH_KV=int8``), and last with the
+   bf16 cache and contacts off, for the solver's share of the time; every
+   output finite, and K1, K2, K1 launched exactly 2 passes x 4 layers x 90
+   steps = 720 times;
 7. train-small-agreement: one train step at a toy width (f32, dropout and
    goal dropout 0) from the same params and batch on the card (K3/K4) and
    on the CPU (plain version): losses, gradients and updated params within
    1e-4;
 8. train at full width: the default model with dropout 0.1, 64 synthetic
-   scenes of 12 agents replayed through physics (contacts off) into a
+   scenes of 12 agents replayed through physics (contacts on) into a
    ``ScenarioStore``, 10 steps of ``Trainer.make_train_step`` at global
    batch 64 as 16 x 4 accumulation; every loss and the gradient norm
    finite, and exactly 4 layers x 4 microbatches = 16 K3 and 16 K4
@@ -91,44 +99,74 @@ def _median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def _attention_case(B, Q, N, H, heads, dtype, mask, gen):
-    """Kernel vs plain version on one input; returns the measured row."""
+def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
+    """K1 (or, with ``int8``, K2 over a cache quantized from unit normals by
+    ``quantize_rows``) against its plain version on one input; returns the
+    measured row. The library yardstick for K2 runs over the K/V
+    dequantized to q's dtype beforehand."""
     import torch
     import torch.nn.functional as F
 
     from ctrl_sim_tpu_torch.ops import attention
 
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt) for shape in
-               ((B, Q, H), (B, N, H), (B, N, H)))
-    got = attention.cached_decode_attention(q, k, v, mask, heads)
-    want = attention.cached_decode_attention_reference(q, k, v, mask, heads)
+    q = torch.randn((B, Q, H), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, N, H), generator=gen, device="cuda") for _ in range(2))
+    if int8:
+        (k, ks), (v, vs) = attention.quantize_rows(k), attention.quantize_rows(v)
+        args = (q, k, v, ks, vs, mask, heads)
+        kernel, plain = attention.cached_decode_attention_q8, attention.cached_decode_attention_q8_reference
+        k_lib, v_lib = (x.float() * s[..., None] for x, s in ((k, ks), (v, vs)))
+    else:
+        k, v = k.to(dt), v.to(dt)
+        args = (q, k, v, mask, heads)
+        kernel, plain = attention.cached_decode_attention, attention.cached_decode_attention_reference
+        k_lib, v_lib = k, v
+    name = "K2" if int8 else "K1"
+    got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     rows = (mask != 0).any(dim=1)  # rows with a visible key; the others are unused
     if not torch.isfinite(got.float()).all():
-        raise AssertionError(f"K1 gave non-finite values at B={B} Q={Q} N={N} H={H} {dtype}")
+        raise AssertionError(f"{name} gave non-finite values at B={B} Q={Q} N={N} H={H} {dtype}")
     err = (got.float() - want.float())[:, rows].abs().max().item()
     if err > TOL[dtype]:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} > {TOL[dtype]}")
+        raise AssertionError(f"{name} disagrees with its plain version: {err} > {TOL[dtype]}")
 
     d = H // heads
-    q4, k4, v4 = (x.view(x.shape[0], x.shape[1], heads, d).transpose(1, 2) for x in (q, k, v))
+    q4, k4, v4 = (x.to(dt).view(x.shape[0], x.shape[1], heads, d).transpose(1, 2) for x in (q, k_lib, v_lib))
     bool_mask = mask != 0
-    es = q.element_size()
-    nbytes = (2 * B * Q * H + 2 * B * N * H) * es + Q * N
+    kv_bytes = 2 * B * N * H * (1 if int8 else q.element_size()) + (2 * B * N * 4 if int8 else 0)
+    nbytes = 2 * B * Q * H * q.element_size() + kv_bytes + Q * N
     ops = 4 * B * Q * N * H
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {
-        "shape": f"B={B} Q={Q} N={N} H={H}/{heads} {dtype}",
+        "shape": f"B={B} Q={Q} N={N} H={H}/{heads} {dtype}" + (" int8 K/V" if int8 else ""),
         "max_abs_err": err,
-        "ms": _median_ms(lambda: attention.cached_decode_attention(q, k, v, mask, heads)),
-        "plain_ms": _median_ms(lambda: attention.cached_decode_attention_reference(q, k, v, mask, heads)),
-        "library_ms": _median_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)),
+        "ms": _median_ms(lambda: kernel(*args)),
+        "plain_ms": _median_ms(lambda: plain(*args)),
+        "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+
+
+def _quantize_rows_on_card(gen) -> str:
+    """``quantize_rows`` on the card equals its CPU result, values and
+    scales bit for bit (every step is exact or correctly rounded)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import attention
+
+    x = torch.randn((LANES, 1536, 256), generator=gen, device="cuda") * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        got = attention.quantize_rows(x.to(dtype))
+        want = attention.quantize_rows(x.to(dtype).cpu())
+        for name, a, b in zip(("values", "scales"), got, want):
+            if not torch.equal(a.cpu(), b):
+                diff = (a.cpu().float() - b.float()).abs().max().item()
+                raise AssertionError(f"quantize_rows {name} on the card differ from the CPU's ({dtype}): {diff}")
+    return f"quantize_rows of {tuple(x.shape)} equal to the CPU's in f32 and bf16"
 
 
 def _flash_inputs(B, steps, A, K, heads, d, dtype, gen):
@@ -277,9 +315,10 @@ class _ReplaySampler:
         return self.act[t]
 
 
-def _small_agreement() -> str:
-    """The toy-width rollout on the card against the same rollout on the CPU
-    (plain kernels), with the CPU run's draws replayed on the card."""
+def _small_agreement(kv_cache_dtype: str) -> str:
+    """The toy-width rollout (contacts on) on the card against the same
+    rollout on the CPU (plain kernels), with the CPU run's draws replayed
+    on the card."""
     import torch
 
     from ctrl_sim_tpu_torch.config import load_config
@@ -293,7 +332,7 @@ def _small_agreement() -> str:
         "model.num_transformer_encoder_layers": 1, "model.num_decoder_layers": 2,
         "model.compute_dtype": "float32", "waymo.max_num_agents": 12, "sim.max_agents": 12,
         "eval.agent_slots": 8, "waymo.train_context_length": 8, "sim.steps": 16,
-        "sim.history_steps": 4, "sim.resolve_contacts": False,
+        "sim.history_steps": 4, "model.kv_cache_dtype": kv_cache_dtype,
     })
     scenes = stack_scenarios(
         [synthetic_scenario(cfg, seed=SEED + s, num_agents=8, arena_half=60.0, num_lanes=2)
@@ -316,7 +355,8 @@ def _small_agreement() -> str:
     if logit_err > 1e-3 or pos_err > 1e-3 or rew_err > 1e-3:
         raise AssertionError(
             f"card and CPU rollouts disagree: logits {logit_err}, positions {pos_err}, reward8 {rew_err}")
-    return f"max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, |d reward8| {rew_err:.3g}"
+    return (f"{kv_cache_dtype} cache: max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, "
+            f"|d reward8| {rew_err:.3g}")
 
 
 def _toy_train_config(load_config):
@@ -326,7 +366,7 @@ def _toy_train_config(load_config):
         "model.compute_dtype": "float32", "model.dropout": 0.0, "model.goal_dropout": 0.0,
         "waymo.max_num_agents": 12, "sim.max_agents": 12, "waymo.train_context_length": 8,
         "waymo.max_num_road_polylines": 16, "waymo.max_num_road_pts_per_polyline": 20,
-        "sim.steps": 16, "sim.resolve_contacts": False, "train.global_batch_size": 4,
+        "sim.steps": 16, "train.global_batch_size": 4,
         "train.accum_steps": 2, "train.lr": 5e-5,
     })
 
@@ -486,6 +526,20 @@ def main() -> int:
     _phase("k1-vs-plain", t0, f"{len(cases)} cases within 2e-2 (bf16) / 1e-4 (f32)")
 
     t0 = time.perf_counter()
+    q8 = {}
+    for dtype in ("bfloat16", "float32"):
+        for name, mask in (("pass1", mask1[t_mid]), ("pass2", mask2[t_mid])):
+            q8[f"{name} {dtype}"] = _attention_case(LANES, *mask.shape, 256, 8, dtype, mask, gen, int8=True)
+        q8[f"narrow {dtype}"] = _attention_case(64, 12, 384, 64, 4, dtype, narrow, gen, int8=True)
+        q8[f"masked rows {dtype}"] = _attention_case(LANES, *dead.shape, 256, 8, dtype, dead, gen, int8=True)
+    for name, row in q8.items():
+        print(f"  K2 {name}: {row['shape']} err {row['max_abs_err']:.3g} "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (SDPA over "
+              f"dequantized K/V) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    detail = _quantize_rows_on_card(gen)
+    _phase("k2-vs-plain", t0, f"{len(q8)} cases within 2e-2 (bf16) / 1e-4 (f32); {detail}")
+
+    t0 = time.perf_counter()
     ft = _flash_main(gen)
     flash = {"train-step bfloat16 p=0.1": ft["check"]}
     for dtype in ("bfloat16", "float32"):
@@ -507,46 +561,60 @@ def main() -> int:
     _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
 
     t0 = time.perf_counter()
-    detail = _small_agreement()
+    detail = "; ".join(_small_agreement(kv) for kv in ("bfloat16", "int8"))
     _phase("small-agreement", t0, detail)
 
     t0 = time.perf_counter()
-    cfg = load_config({
-        "model.cross_score_dtype": "bfloat16",
-        "sim.resolve_contacts": False,
-        "eval.agent_slots": SLOTS,
-    })
+    cfg = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS})
     scenes = stack_scenarios(
         [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
          for s in range(LANES)], cfg)
     sc = to_torch(scenes, "cuda")
     model = CtRLSim(cfg)
     init_params(model, torch.Generator().manual_seed(SEED))
+    cfg_q8 = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS,
+                          "model.kv_cache_dtype": "int8"})
+    cfg_off = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS,
+                           "sim.resolve_contacts": False})
+    model_q8 = CtRLSim(cfg_q8)
+    model_q8.load_state_dict(model.state_dict())  # the same weights
     controlled = sc.moving & sc.agent_valid
     tilt = get_tilt_logits(0.0, 0.0, 0.0, cfg.waymo, device="cuda")
-    _phase("setup", t0, f"{LANES} scenes, {sum(p.numel() for p in model.parameters())} params")
+    _phase("setup", t0, f"{LANES} scenes, {sum(p.numel() for p in model.parameters())} params, contacts on")
 
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    attention.cached_decode_attention.launches = 0
-    start = time.perf_counter()
-    out = run_streaming(cfg, model, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    k1_launches = attention.cached_decode_attention.launches
-    steps = cfg.sim.steps
-    expected = 2 * cfg.model.num_decoder_layers * steps
-    if k1_launches != expected:
-        raise AssertionError(f"K1 launched {k1_launches} times on the main path, expected {expected}")
-    for name, x in out._asdict().items():
-        if not torch.isfinite(x.float()).all():
-            raise AssertionError(f"non-finite rollout output {name}")
-    if out.position.shape != (steps + 1, LANES, scenes.traj_position.shape[1], 2):
-        raise AssertionError(f"unexpected position shape {tuple(out.position.shape)}")
-    _phase("rollout", t0, f"{LANES} lanes x {steps} steps in {elapsed:.3f}s = "
-           f"{LANES * steps / elapsed:.1f} env-steps/s on this card (one cold run, not a benchmark); "
-           f"K1 launches {k1_launches}")
-    del out, sc, model
+    rollout_s, rollout_launches = {}, {}
+    for phase, c, m, kernel in (("rollout", cfg, model, attention.cached_decode_attention),
+                                ("rollout-int8", cfg_q8, model_q8, attention.cached_decode_attention_q8),
+                                ("rollout-contacts-off", cfg_off, model, attention.cached_decode_attention)):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        attention.cached_decode_attention.launches = 0
+        attention.cached_decode_attention_q8.launches = 0
+        start = time.perf_counter()
+        out = run_streaming(c, m, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launched = kernel.launches
+        other = (attention.cached_decode_attention.launches + attention.cached_decode_attention_q8.launches
+                 - launched)
+        steps = c.sim.steps
+        expected = 2 * c.model.num_decoder_layers * steps
+        if launched != expected or other:
+            raise AssertionError(f"{phase}: {kernel.__name__} launched {launched} times on the main path, "
+                                 f"expected {expected}; the other decode kernel {other} times, expected 0")
+        for name, x in out._asdict().items():
+            if not torch.isfinite(x.float()).all():
+                raise AssertionError(f"{phase}: non-finite rollout output {name}")
+        if out.position.shape != (steps + 1, LANES, scenes.traj_position.shape[1], 2):
+            raise AssertionError(f"{phase}: unexpected position shape {tuple(out.position.shape)}")
+        rollout_s[phase], rollout_launches[phase] = elapsed, launched
+        contacts = "on" if c.sim.resolve_contacts else "off"
+        _phase(phase, t0, f"{LANES} lanes x {steps} steps, {c.model.kv_cache_dtype} cache, contacts {contacts}, in "
+               f"{elapsed:.3f}s = {LANES * steps / elapsed:.1f} env-steps/s on this card (one cold run, not a "
+               f"benchmark); {kernel.__name__} launches {launched}")
+        del out
+    k1_launches, k2_launches = rollout_launches["rollout"], rollout_launches["rollout-int8"]
+    del sc, model, model_q8
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -559,6 +627,8 @@ def main() -> int:
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
+    q8_rows = [q8["pass1 bfloat16"], q8["pass2 bfloat16"]]
+    mean_q8 = lambda key: statistics.fmean(r[key] for r in q8_rows)  # noqa: E731
     main_flash = ft["check"]  # the inputs the kernels were timed on
     print(json.dumps({"kernels": [
         {
@@ -575,6 +645,24 @@ def main() -> int:
             "bound_by": main_rows[0]["bound_by"],
             "library_ms": mean("library_ms"),
             "build_s": build_s,
+            "rollout_s": rollout_s["rollout"],
+        },
+        {
+            "name": "cached_decode_attention_q8",
+            "route": "cuda",
+            "source": "ctrl_sim_tpu_torch/csrc/decode_attention_q8.cu",
+            "replaces": "ctrl_sim_tpu/ops/attention.py:232",
+            "launches": k2_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in q8_rows),
+            "ms": mean_q8("ms"),
+            "kernel_ms": mean_q8("ms"),
+            "plain_ms": mean_q8("plain_ms"),
+            "bound_ms": mean_q8("bound_ms"),
+            "bound_by": q8_rows[0]["bound_by"],
+            "library_ms": mean_q8("library_ms"),
+            "library": "F.scaled_dot_product_attention over K/V dequantized to bf16 beforehand (not timed); "
+                       "not the same function, it reads twice K2's bytes",
+            "rollout_s": rollout_s["rollout-int8"],
         },
         {
             "name": "flash_mha_fwd",

@@ -206,8 +206,8 @@ class ModelConfig:
 
     # numeric policy: params in fp32, activations and matmuls in compute_dtype
     compute_dtype: str = "bfloat16"
-    # streaming KV-cache storage; the port implements "bfloat16" (the cache
-    # then holds compute_dtype) and refuses "int8" (kernel K2, not ported yet)
+    # streaming KV-cache storage: "int8" holds per-token quantized K/V with
+    # fp32 scales (kernel K2); any other value holds compute_dtype (kernel K1)
     kv_cache_dtype: str = "bfloat16"
     # dtype of the stored cross-attention score matrix: float32 = exact;
     # bfloat16 rounds the stored scores and exp outputs, reductions stay f32

@@ -8,8 +8,8 @@ ground-truth next state (reference :88-119); per-step states, actions and
 8-component rewards are recorded, then the two distance-shaped reward
 streams the preprocessed pickles carry (dataset.py:189-237): signed
 distance to the nearest road edge and distance to the nearest vehicle. A
-Python loop over steps takes the place of ``lax.scan``. Contacts are not
-ported: ``WaymoEnv`` refuses ``sim.resolve_contacts=True``.
+Python loop over steps takes the place of ``lax.scan``. The env resolves
+vehicle contacts when ``sim.resolve_contacts`` is on (the default).
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ One ``WaymoEnv.step`` advances every agent of every scene in lockstep, with
 the reference's semantics: FreeCar physics or kinematic bicycle for
 controlled agents, expert log-replay teleport (scenario.cc:277-283), dead
 agents pinned at the (-1e6, -1e6) sentinel, collision flags recomputed after
-the dynamics, and the sticky position-goal bit carried in the state.
-
-Contacts (``sim.resolve_contacts``, the Box2D-style solver of
-``ctrl_sim_tpu/env/contacts.py``) are not ported yet: the env refuses them.
+the dynamics, and the sticky position-goal bit carried in the state. With
+``sim.resolve_contacts`` (the default) and physics dynamics, the Box2D-style
+contact solver (env/contacts.py) corrects FreeCar's velocities and
+re-integrates, in b2World::Step order.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.data.scenario import DEAD_POSITION, Scenario
 from ctrl_sim_tpu_torch.env.collision import detect_collisions
+from ctrl_sim_tpu_torch.env.contacts import resolve_contacts
 from ctrl_sim_tpu_torch.env.dynamics import (
     BodyState,
     body_state_from_pose,
@@ -45,11 +46,6 @@ class WaymoEnv:
     """Batched environment over a ``Scenario`` whose fields are tensors."""
 
     def __init__(self, cfg: Config):
-        if cfg.sim.resolve_contacts:
-            raise NotImplementedError(
-                "sim.resolve_contacts=True: the contact solver is not ported "
-                "yet; pass sim.resolve_contacts=False"
-            )
         if cfg.sim.dynamics not in ("physics", "kinematic"):
             raise ValueError(f"unknown dynamics contract {cfg.sim.dynamics!r}")
         self.cfg = cfg
@@ -121,6 +117,14 @@ class WaymoEnv:
             stepped = freecar_step(
                 bodies, acceleration, steering, scenario.length, sim.dt, sim.physics
             )
+            if sim.resolve_contacts:
+                # b2World::Step order: FreeCar proposes velocities, the
+                # contact solver corrects them, then positions integrate
+                valid = scenario.agent_valid
+                stepped = resolve_contacts(
+                    bodies, stepped, scenario.length, scenario.width,
+                    state.alive & valid & ~expert_mask, state.alive & valid & expert_mask, sim.dt,
+                )
         else:
             new_pos, new_heading, new_speed = kinematic_bicycle_step(
                 bodies.position, bodies.heading, bodies.speed, acceleration,

@@ -80,15 +80,13 @@ class CtRLSim(nn.Module):
         return self.decoder.memory_kv(memory)
 
     def new_cache(self, B: int, A: int, device=None) -> KVCache:
+        """The streaming KV cache: int8 with per-token scales when
+        ``model.kv_cache_dtype == "int8"``, else in the compute dtype."""
         mc = self.cfg.model
-        if mc.kv_cache_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"model.kv_cache_dtype={mc.kv_cache_dtype!r}: the int8 cache "
-                "(kernel K2) is not ported yet"
-            )
+        dtype = torch.int8 if mc.kv_cache_dtype == "int8" else self.compute_dtype
         return KVCache.create(
             mc.num_decoder_layers, B, self.cfg.waymo.train_context_length, A,
-            mc.num_token_types, mc.hidden_dim, self.compute_dtype, device,
+            mc.num_token_types, mc.hidden_dim, dtype, device,
         )
 
     def stream_action_state(

@@ -9,9 +9,9 @@ Two execution paths:
   kernel; otherwise through the plain einsum path with the dense
   [N, N] mask of ops/masks.py.
 - ``decode_step_groups``: the streaming rollout's incremental decode over a
-  ring-buffer KV cache through the decode-attention kernel K1
-  (ops/attention.py), with the static episode memory's cross-attention K/V
-  projected once.
+  ring-buffer KV cache through the decode-attention kernel K1, or K2 over an
+  int8 cache (ops/attention.py), with the static episode memory's
+  cross-attention K/V projected once.
 
 Heads: 1000-way action categorical (read from the rtg-token stream), 350
 bins x 3 return-to-go components (from the state-token stream), and 32
@@ -76,22 +76,32 @@ class KVCache:
     each timestep slot, so one group of A tokens of one type is one
     contiguous slice. The buffers are updated in place by ``decode_step``.
     slot_t: the episode timestep each slot holds (-1 empty).
+
+    With ``dtype == torch.int8`` (``model.kv_cache_dtype``), k/v hold
+    per-token symmetrically quantized values and k_scale/v_scale the fp32
+    row scales, per-layer lists of [B, window, K, A]; the cache read is the
+    rollout's dominant memory traffic, and int8 halves it.
     """
 
     k: list[Tensor]
     v: list[Tensor]
     slot_t: list[int]
+    k_scale: list[Tensor] | None = None
+    v_scale: list[Tensor] | None = None
 
     @staticmethod
     def create(num_layers: int, B: int, window: int, A: int, K: int, H: int,
                dtype: torch.dtype, device=None) -> "KVCache":
-        def buf():
-            return torch.zeros((B, window, K, A, H), dtype=dtype, device=device)
+        def buf(shape, dt):
+            return [torch.zeros(shape, dtype=dt, device=device) for _ in range(num_layers)]
 
+        quantized = dtype == torch.int8
         return KVCache(
-            k=[buf() for _ in range(num_layers)],
-            v=[buf() for _ in range(num_layers)],
+            k=buf((B, window, K, A, H), dtype),
+            v=buf((B, window, K, A, H), dtype),
             slot_t=[-1] * window,
+            k_scale=buf((B, window, K, A), torch.float32) if quantized else None,
+            v_scale=buf((B, window, K, A), torch.float32) if quantized else None,
         )
 
 
@@ -199,9 +209,12 @@ class Decoder(nn.Module):
             mask = mask_override
         else:
             mask = self._mask(groups, cache.slot_t, A, K, window, x.device)
+        quantized = cache.k_scale is not None
         for li, layer in enumerate(self.layers):
             x = layer.decode_step(
-                x, cache.k[li], cache.v[li], writes, mask, memory_valid, memory_kv[li]
+                x, cache.k[li], cache.v[li], writes, mask, memory_valid, memory_kv[li],
+                k_scale_buf=cache.k_scale[li] if quantized else None,
+                v_scale_buf=cache.v_scale[li] if quantized else None,
             )
         return x, cache
 

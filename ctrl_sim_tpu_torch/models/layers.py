@@ -15,13 +15,11 @@ device), the counterpart of flax's ``dropout`` RNG stream.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctrl_sim_tpu_torch.ops.attention import cached_decode_attention
+from ctrl_sim_tpu_torch.ops.attention import cached_decode_attention, cached_decode_attention_q8, quantize_rows
 from ctrl_sim_tpu_torch.ops.flash_attention import MaskSpec, flash_mha
 
 Tensor = torch.Tensor
@@ -89,6 +87,12 @@ class MLPLayer(nn.Module):
         return self.fc2(F.relu(self.norm(self.fc1(x))))
 
 
+def score_scale(head_dim: int, dtype: torch.dtype) -> Tensor:
+    """The attention scale folded into q, formed as the JAX layer forms it:
+    1/sqrt(d) in float32, then rounded to q's dtype."""
+    return (1.0 / torch.sqrt(torch.tensor(float(head_dim)))).to(dtype)
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with boolean masking (True = attend).
 
@@ -146,7 +150,7 @@ class MultiHeadAttention(nn.Module):
         hd = D // self.num_heads
         dt = self.compute_dtype
         sd = self.score_dtype
-        q = q * (1.0 / math.sqrt(hd))
+        q = q * score_scale(hd, q.dtype)
         q = q.reshape(B, Tq, self.num_heads, hd)
         k = k.reshape(B, Tk, self.num_heads, hd)
         v = v.reshape(B, Tk, self.num_heads, hd)
@@ -263,23 +267,36 @@ class TransformerDecoderLayer(nn.Module):
         mask: Tensor,  # [Q, W*K*A] bool or int8 (nonzero = attend)
         memory_valid: Tensor,  # [B, M] bool
         mem_kv: tuple[Tensor, Tensor],  # this layer's cross-attention K/V [B, M, H]
+        k_scale_buf: Tensor | None = None,  # [B, W, K, A] fp32, with an int8 k_buf
+        v_scale_buf: Tensor | None = None,
     ) -> Tensor:
         """Cache-first incremental decode: write the new tokens' K/V into the
         ring buffer (in place: each slot's rows are overwritten, nothing
         else is copied), then attend over the whole buffer through the
-        decode-attention kernel (ops/attention.py)."""
+        decode-attention kernel (ops/attention.py): K1, or K2 when the
+        buffer is int8, in which case the new rows are quantized per token
+        on write and their scales written into the same slots."""
         q_new, k_new, v_new = self.self_attn.project_qkv(tgt)
         B, W, K, A, H = k_buf.shape
+        quantized = k_buf.dtype == torch.int8
+        if quantized:
+            k_new, k_s = quantize_rows(k_new)
+            v_new, v_s = quantize_rows(v_new)
         for slot, token_type, row0 in writes:
             k_buf[:, slot, token_type] = k_new[:, row0 : row0 + A]
             v_buf[:, slot, token_type] = v_new[:, row0 : row0 + A]
-        sa = cached_decode_attention(
-            q_new.contiguous(),
-            k_buf.view(B, W * K * A, H),
-            v_buf.view(B, W * K * A, H),
-            mask,
-            self.num_heads,
-        )
+            if quantized:
+                k_scale_buf[:, slot, token_type] = k_s[:, row0 : row0 + A]
+                v_scale_buf[:, slot, token_type] = v_s[:, row0 : row0 + A]
+        flat_k, flat_v = k_buf.view(B, W * K * A, H), v_buf.view(B, W * K * A, H)
+        if quantized:
+            sa = cached_decode_attention_q8(
+                q_new.contiguous(), flat_k, flat_v,
+                k_scale_buf.view(B, W * K * A), v_scale_buf.view(B, W * K * A),
+                mask, self.num_heads,
+            )
+        else:
+            sa = cached_decode_attention(q_new.contiguous(), flat_k, flat_v, mask, self.num_heads)
         return self._after_self_attn(
             tgt, self.self_attn.out_proj(sa), None, memory_valid, True, mem_kv=mem_kv
         )

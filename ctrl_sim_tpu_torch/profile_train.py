@@ -4,7 +4,7 @@
 
 needs one CUDA card. Builds the full-width training set-up (the default
 model with dropout 0.1, 64 synthetic scenes of 12 agents replayed through
-physics with contacts off, global batch 64 as 16 x 4 accumulation), runs two
+physics with contacts on, global batch 64 as 16 x 4 accumulation), runs two
 warm-up steps and then ``--steps`` steps under torch.profiler, and prints
 the device time by kernel (top 25), the share of the flash kernels (K3/K4)
 and the device's busy share of the window's wall time. The profiler slows
@@ -30,7 +30,7 @@ def full_width_setup(seed: int = 0):
     from ctrl_sim_tpu_torch.data.store import ScenarioStore
     from ctrl_sim_tpu_torch.training import Trainer
 
-    cfg = load_config({"sim.resolve_contacts": False, "train.accum_steps": 4})
+    cfg = load_config({"train.accum_steps": 4})
     scenes = [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
               for s in range(SCENES)]
     torch.cuda.synchronize()

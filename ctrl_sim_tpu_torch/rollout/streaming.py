@@ -16,9 +16,10 @@ per episode, and both passes' [Q, N] masks are precomputed for every step
 (ops/masks.py:stream_step_masks). A Python loop over steps takes the place
 of ``lax.scan``; the KV ring cache is updated in place.
 
-Not ported yet, and refused: the trajeglish, IL and DT families, the
-sequential 3-pass decode (``eval.streaming_passes=3``), the int8 KV cache
-and the contact solver.
+The KV cache is int8 with per-token scales when ``model.kv_cache_dtype``
+is "int8" (kernel K2), else in the compute dtype (kernel K1). Not ported
+yet, and refused: the trajeglish, IL and DT families and the sequential
+3-pass decode (``eval.streaming_passes=3``).
 """
 
 from __future__ import annotations

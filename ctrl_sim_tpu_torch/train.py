@@ -2,18 +2,20 @@
 ``ctrl_sim_tpu/train.py``, same flags and output lines).
 
 argparse + dotted config overrides, one device (the card unless
-``--device cpu``), checkpoints with auto-resume. Contacts are not ported,
-so the replay needs ``-o sim.resolve_contacts=false``.
+``--device cpu``), checkpoints with auto-resume. The scenes are replayed
+through physics with the contact solver on (``sim.resolve_contacts``).
+Each step's batch and dropout draws come from generators seeded by
+(``train.seed``, step), so a resumed run draws what an uninterrupted one
+draws, and the grad-norm logging draws from a stream of its own.
 
 Examples:
   # smoke-train on synthetic scenes at a toy width, on the CPU
   python -m ctrl_sim_tpu_torch.train --synthetic 8 --steps 3 --device cpu \\
-      -o sim.resolve_contacts=false -o model.hidden_dim=64 -o model.num_heads=4 \\
+      -o model.hidden_dim=64 -o model.num_heads=4 \\
       -o train.global_batch_size=4 --log_every 1 --save_dir /tmp/ckpt
 
   # full width on the card, global batch 64 as 16 x 4 accumulation
-  python -m ctrl_sim_tpu_torch.train --synthetic 64 --steps 200 \\
-      -o sim.resolve_contacts=false -o train.accum_steps=4
+  python -m ctrl_sim_tpu_torch.train --synthetic 64 --steps 200 -o train.accum_steps=4
 
 Not ported yet, and refused: ``--data_dir`` / ``--val_dir`` (the JSON scene
 loaders), ``--distributed`` (the multi-device learner), presets other than
@@ -34,6 +36,12 @@ from ctrl_sim_tpu_torch.data.synthetic import synthetic_scenario
 from ctrl_sim_tpu_torch.device import resolve_device
 from ctrl_sim_tpu_torch.training import Trainer
 from ctrl_sim_tpu_torch.training.checkpoint import CheckpointManager
+from ctrl_sim_tpu_torch.training.trainer import (
+    DATA_STREAM,
+    DROPOUT_STREAM,
+    GRAD_NORM_STREAM,
+    step_generator,
+)
 from ctrl_sim_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -102,8 +110,6 @@ def main(argv: list[str] | None = None) -> None:
     print(f"[train] store: {store.num_scenes} scenes")
 
     seed = cfg.train.seed
-    data_gen = torch.Generator(device=device).manual_seed(seed)
-    dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
     trainer = Trainer(cfg, device=device)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
 
@@ -120,8 +126,8 @@ def main(argv: list[str] | None = None) -> None:
     t0 = time.time()
     step = state.step
     while step < cfg.train.max_steps:
-        batch = store.sample_batch(data_gen, batch_size)
-        state, losses = train_step(state, batch, dropout_gen)
+        batch = store.sample_batch(step_generator(seed, step, DATA_STREAM, device), batch_size)
+        state, losses = train_step(state, batch, step_generator(seed, step, DROPOUT_STREAM, device))
         step = state.step
         if step % args.log_every == 0:
             total = float(losses.total)
@@ -130,7 +136,8 @@ def main(argv: list[str] | None = None) -> None:
             row = {k: float(v) for k, v in losses._asdict().items()}
             row["steps_per_sec"] = args.log_every / dt
             if grad_norm_fn is not None:
-                row.update({k: float(v) for k, v in grad_norm_fn(state, batch, dropout_gen).items()})
+                gen = step_generator(seed, step, GRAD_NORM_STREAM, device)
+                row.update({k: float(v) for k, v in grad_norm_fn(state, batch, gen).items()})
             logger.log(step, row)
             print(
                 f"[train] step={step} loss={total:.4f} "

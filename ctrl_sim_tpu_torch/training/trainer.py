@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ctrl_sim_tpu_torch.config import Config
@@ -88,7 +89,25 @@ def clip_by_global_norm(grads: list[Tensor], max_norm: float) -> Tensor:
 
 
 def _split(batch: dict, accum: int) -> list[dict]:
+    """``accum`` equal microbatches; a batch that ``accum`` does not divide
+    raises, as the JAX step's reshape does (uneven chunks would be
+    mis-weighted by the 1/accum average)."""
+    n = len(next(iter(batch.values())))
+    if n % accum:
+        raise ValueError(f"a batch of {n} does not split into {accum} equal microbatches (train.accum_steps)")
     return [dict(zip(batch, parts)) for parts in zip(*(v.chunk(accum) for v in batch.values()))]
+
+
+DATA_STREAM, DROPOUT_STREAM, GRAD_NORM_STREAM = 0, 1, 2
+
+
+def step_generator(seed: int, step: int, stream: int, device: torch.device | str) -> torch.Generator:
+    """A generator seeded by (seed, step, stream) alone, the counterpart of
+    the JAX trainer's ``fold_in(key, step)``: a run resumed at step k draws
+    what an uninterrupted run draws at step k, and one stream's use does not
+    move another's."""
+    mixed = np.random.SeedSequence([seed, step, stream]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
 
 
 class Trainer:

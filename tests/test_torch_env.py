@@ -1,5 +1,6 @@
 """The port's config, scenes, geometry, dynamics and environment held
-against the JAX package on the same inputs (contacts off)."""
+against the JAX package on the same inputs (contacts off; the contact
+solver is held against the JAX one in test_torch_contacts.py)."""
 
 import dataclasses
 
@@ -185,12 +186,6 @@ def test_env_gt_replay_matches_jax(dynamics):
         np.testing.assert_array_equal(t2n(tst.veh_veh_collision), np.asarray(jst.veh_veh_collision))
         np.testing.assert_array_equal(t2n(tst.veh_edge_collision), np.asarray(jst.veh_edge_collision))
     assert t2n(tst.position_achieved).any()
-
-
-def test_env_refuses_contacts():
-    _, tcfg = configs(**{"sim.resolve_contacts": True})
-    with pytest.raises(NotImplementedError):
-        TorchEnv(tcfg)
 
 
 def test_transforms_match_jax():

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-K1 (decode attention) and K3/K4 (training flash attention).
+K1 (decode attention), K2 (decode attention over the int8 cache) and K3/K4
+(training flash attention); and the env step with contacts on, which must
+never wait on a value from the card.
 
 Marked ``cuda``: they skip without a CUDA device (here, and in any CPU run),
 and run on the card with
@@ -12,6 +14,9 @@ This file imports nothing of JAX, so it also runs where JAX is absent.
 import pytest
 import torch
 
+from ctrl_sim_tpu_torch.config import load_config
+from ctrl_sim_tpu_torch.data import stack_scenarios, synthetic_scenario, to_torch
+from ctrl_sim_tpu_torch.env.env import WaymoEnv
 from ctrl_sim_tpu_torch.ops import attention, flash_attention
 from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
 
@@ -73,6 +78,69 @@ def test_decode_attention_kernel_rejects_non_contiguous_or_misaligned(cuda):
         attention.cached_decode_attention(q, k, k, mask, 4)
 
 
+def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
+    """q and an int8 cache quantized from unit normals, K1's inputs: the
+    outputs stay below 4 in magnitude, where one bf16 step (1/64 below 4)
+    fits the 2e-2 tolerance; the kernel keeps its weights in fp32 while the
+    plain version rounds them to bf16, so the two may round the output to
+    neighbouring bf16 values."""
+    q = torch.randn((B, Q, H), generator=gen, device=cuda).to(dtype)
+    k, k_scale = attention.quantize_rows(torch.randn((B, N, H), generator=gen, device=cuda))
+    v, v_scale = attention.quantize_rows(torch.randn((B, N, H), generator=gen, device=cuda))
+    return q, k, v, k_scale, v_scale
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize(
+    "B,Q,N,H,heads",
+    [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4)],
+)
+def test_decode_attention_q8_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
+    gen = torch.Generator(device=cuda).manual_seed(B * Q + N + 1)
+    q, k, v, k_scale, v_scale = _q8_inputs(gen, cuda, B, Q, N, H, dtype)
+    mask = torch.rand((Q, N), generator=gen, device=cuda) > 0.4
+    mask[:, 0] = True
+    mask[: min(3, Q) - 1] = False  # fully masked rows stay finite
+    before = attention.cached_decode_attention_q8.launches
+    got = attention.cached_decode_attention_q8(q, k, v, k_scale, v_scale, mask, heads)
+    assert attention.cached_decode_attention_q8.launches == before + 1
+    want = attention.cached_decode_attention_q8_reference(q, k, v, k_scale, v_scale, mask, heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    rows = mask.any(dim=1)
+    torch.testing.assert_close(got.float()[:, rows], want.float()[:, rows], atol=atol, rtol=0)
+
+
+def test_decode_attention_q8_kernel_on_rollout_masks(cuda):
+    m1, m2 = stream_step_masks(40, 32, 16, 3, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, k, v, k_scale, v_scale = _q8_inputs(gen, cuda, 4, 1, 1536, 256, torch.bfloat16)
+    for t in (0, 1, 31, 32, 39):
+        for mask in (m1[t], m2[t]):
+            q = torch.randn((4, mask.shape[0], 256), generator=gen, device=cuda).bfloat16()
+            got = attention.cached_decode_attention_q8(q, k, v, k_scale, v_scale, mask, 8).float()
+            want = attention.cached_decode_attention_q8_reference(q, k, v, k_scale, v_scale, mask, 8).float()
+            rows = (mask != 0).any(dim=1)
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got[:, rows], want[:, rows], atol=2e-2, rtol=0)
+
+
+def test_decode_attention_q8_kernel_rejects_non_contiguous_or_misaligned(cuda):
+    q = torch.randn((2, 8, 64), device=cuda)
+    scale = torch.ones((2, 48), device=cuda)
+    mask = torch.ones((8, 48), dtype=torch.bool, device=cuda)
+    k = torch.ones((2, 64, 48), dtype=torch.int8, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        attention.cached_decode_attention_q8(q, k, k, scale, scale, mask, 4)
+    flat = torch.ones(2 * 48 * 64 + 1, dtype=torch.int8, device=cuda)
+    k = flat[1:].view(2, 48, 64)  # contiguous, 1 byte off alignment
+    with pytest.raises(ValueError):
+        attention.cached_decode_attention_q8(q, k, k, scale, scale, mask, 4)
+    k = torch.ones((2, 48, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        attention.cached_decode_attention_q8(q, k, k, torch.ones((48, 2), device=cuda).t(), scale, mask, 4)
+
+
 def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     T, D = steps * A * K, heads * d
@@ -131,3 +199,27 @@ def test_flash_attention_kernels_reject_non_contiguous_or_misaligned(cuda):
     k = flat[1:].view(2, 36, 32)  # contiguous, 4 bytes off alignment
     with pytest.raises(ValueError):
         flash_attention.flash_mha_fwd(q, k, q, spec, 2)
+
+
+def test_env_step_with_contacts_does_not_sync(cuda):
+    """The contact solver selects its per-scene branches on the card: an env
+    step with touching vehicles raises under the sync debug mode if any op
+    copies a value back to the host."""
+    cfg = load_config({"sim.resolve_contacts": True})
+    sc = to_torch(stack_scenarios(
+        [synthetic_scenario(cfg, seed=s, num_agents=12, arena_half=25.0, num_lanes=2, conflict_pairs=2)
+         for s in range(8)], cfg), cuda)
+    env = WaymoEnv(cfg)
+    state = env.reset(sc)
+    zero = torch.zeros_like(sc.length)
+    expert = torch.zeros_like(sc.agent_valid)
+    alive = state.alive.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state = env.step(sc, state, zero, zero, expert, alive)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(state.bodies.position).all()

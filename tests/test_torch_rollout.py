@@ -127,7 +127,8 @@ def test_rollout_own_sampler_is_finite_and_seeded(setup):
 
 @pytest.mark.parametrize(
     "over",
-    [{"model.il": True}, {"eval.streaming_passes": 3}, {"sim.resolve_contacts": True}],
+    [{"model.il": True}, {"eval.streaming_passes": 3}, {"model.trajeglish": True},
+     {"model.il": True, "model.kv_cache_dtype": "int8"}],
 )
 def test_rollout_refuses_unported_paths(setup, over):
     _, tcfg0, sb, tm, controlled, *_ = setup

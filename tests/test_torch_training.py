@@ -35,7 +35,7 @@ from ctrl_sim_tpu_torch.ops.masks import multi_agent_causal_mask
 from ctrl_sim_tpu_torch.params import from_flax_params
 from ctrl_sim_tpu_torch.training import Trainer
 from ctrl_sim_tpu_torch.training.checkpoint import CheckpointManager
-from ctrl_sim_tpu_torch.training.trainer import clip_by_global_norm, decay_names, lr_schedule
+from ctrl_sim_tpu_torch.training.trainer import _split, clip_by_global_norm, decay_names, lr_schedule
 from torch_port_common import configs, jax_scenario, models, scenes, t2n
 
 torch.set_num_threads(2)
@@ -43,8 +43,8 @@ torch.set_num_threads(2)
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "reference_training.npz")
 MODEL_KEYS = ("agent_states", "agent_types", "goals", "actions", "rtgs", "timesteps",
               "moving_agent_mask", "road_points", "road_types")
-TOY_TRAIN = [  # train.main overrides: a tiny model on tiny scenes
-    "sim.resolve_contacts=false", "model.hidden_dim=32", "model.num_heads=2", "model.dim_feedforward=64",
+TOY_TRAIN = [  # train.main overrides: a tiny model on tiny scenes (contacts on, the default)
+    "model.hidden_dim=32", "model.num_heads=2", "model.dim_feedforward=64",
     "model.num_decoder_layers=1", "model.num_transformer_encoder_layers=1", "waymo.train_context_length=4",
     "waymo.max_num_agents=8", "waymo.max_num_road_polylines=8", "waymo.max_num_road_pts_per_polyline=10",
     "sim.steps=12", "train.global_batch_size=4", "train.accum_steps=2",
@@ -268,6 +268,50 @@ def test_train_main_on_cpu(tmp_path, capsys):
     torch_train.main(args + ["--steps", "4"])
     out = capsys.readouterr().out
     assert "[train] resuming from step 3" in out and "[train] done at step 4" in out
+
+
+def _train_losses(tmp_path, name, steps, extra=()):
+    """Runs train.main on the CPU (in ``tmp_path / name``, resuming if it
+    holds a checkpoint) and returns its metrics rows by step."""
+    args = ["--synthetic", "4", "--synthetic_agents", "6", "--device", "cpu", "--log_every", "1",
+            "--save_dir", str(tmp_path / name), "--steps", str(steps)]
+    for o in (*TOY_TRAIN, *extra):
+        args += ["-o", o]
+    torch_train.main(args)
+    rows = [json.loads(r) for r in (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+    return {r["step"]: r for r in rows}
+
+
+def test_draws_depend_only_on_seed_and_step(tmp_path, capsys):
+    """Each step's batch and dropout masks come from (seed, step): a run
+    resumed at step 2 logs the losses of an uninterrupted run at step 3,
+    and turning on the grad-norm logging (which draws its own dropout
+    stream) changes no loss. Dropout is on (model.dropout 0.1)."""
+    keys = ("total", "loss_actions", "loss_rtg_goal", "loss_state")
+    straight = _train_losses(tmp_path, "straight", 3)
+    _train_losses(tmp_path, "resumed", 2)
+    resumed = _train_losses(tmp_path, "resumed", 3)
+    assert "resuming from step 2" in capsys.readouterr().out
+    logged = _train_losses(tmp_path, "logged", 3, ["train.log_grad_norms=true"])
+    assert any(k.startswith("grad_2.0_norm/") for k in logged[3]), sorted(logged[3])
+    for step in (1, 2, 3):
+        for k in keys:
+            assert resumed[step][k] == straight[step][k], (step, k)
+            assert logged[step][k] == straight[step][k], (step, k)
+    assert straight[1]["total"] != straight[2]["total"]
+
+
+def test_accumulation_refuses_a_batch_it_does_not_divide(setup):
+    """Three rows into two microbatches would give uneven chunks, each
+    weighted 1/2; the JAX step's reshape raises, and so does the port's."""
+    *_, tm, _, tb = setup
+    assert len(tb["actions"]) == 3
+    _, cfg = configs(**{"model.dropout": 0.0, "model.goal_dropout": 0.0, "train.accum_steps": 2})
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.state_from_model(tm)
+    with pytest.raises(ValueError, match="equal microbatches"):
+        trainer.make_train_step()(state, tb, torch.Generator().manual_seed(0))
+    assert len(_split(tb, 3)) == 3 and all(len(m["actions"]) == 1 for m in _split(tb, 3))
 
 
 def test_entry_points_need_the_card_or_an_explicit_cpu():

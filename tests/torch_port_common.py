@@ -15,10 +15,13 @@ from ctrl_sim_tpu.config import load_config as jax_load_config
 from ctrl_sim_tpu.data import stack_scenarios as jax_stack, synthetic_scenario as jax_synth
 from ctrl_sim_tpu.data.scenario import Scenario as JaxScenario
 from ctrl_sim_tpu.models.ctrl_sim import CtRLSim as JaxCtRLSim
+from ctrl_sim_tpu.rollout.streaming import run_streaming as jax_run_streaming
 from ctrl_sim_tpu_torch.config import load_config as torch_load_config
 from ctrl_sim_tpu_torch.data import to_torch
+from ctrl_sim_tpu_torch.data import transforms as ttf
 from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim as TorchCtRLSim
 from ctrl_sim_tpu_torch.params import from_flax_params
+from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
 
 # hidden 64 / 4 heads (d = 16), 1 encoder + 2 decoder layers, 12 scene agents
 # packed into 8 model slots, window 8, f32, contacts off
@@ -103,3 +106,160 @@ def models(jcfg, tcfg, seed: int = 0):
 
 def t2n(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def patch_jax_contact_tie_rule(monkeypatch):
+    """Give the JAX package's contact geometry, for one test, the tie rule
+    of the port's (ctrl_sim_tpu_torch/env/contacts.py, ``KEY_TIE``): the
+    two corners of an incident edge project equally along its normal in
+    exact arithmetic, and the JAX code orders them by float32 rounding,
+    which differs between XLA's fusions and PyTorch; the port treats keys
+    within ``KEY_TIE`` as equal and orders by corner index. With this one
+    line changed in the JAX source (recompiled from its own text, nothing
+    else copied), the two solvers can be held to float32 rounding."""
+    import inspect
+
+    from ctrl_sim_tpu.env import contacts as jcon
+    from ctrl_sim_tpu_torch.env.contacts import KEY_TIE
+
+    src = inspect.getsource(jcon._contact_geometry)
+    old = (
+        "    lt = (key[..., :, None] > key[..., None, :]) | (\n"
+        "        (key[..., :, None] == key[..., None, :])\n"
+        "        & (kidx[:, None] > kidx[None, :])\n"
+        "    )"
+    )
+    new = (
+        "    diff = key[..., :, None] - key[..., None, :]\n"
+        "    lt = (diff > KEY_TIE) | ((jnp.abs(diff) <= KEY_TIE) & (kidx[:, None] > kidx[None, :]))"
+    )
+    assert src.count(old) == 1, "the JAX contact geometry changed: update this patch"
+    namespace = {**vars(jcon), "KEY_TIE": KEY_TIE}
+    exec(compile(src.replace(old, new), jcon.__file__, "exec"), namespace)
+    monkeypatch.setattr(jcon, "_contact_geometry", namespace["_contact_geometry"])
+
+
+STREAM_STEPS = 5
+
+
+def stream_inputs(cfg, B: int, A: int, seed: int = 0) -> dict:
+    """Numpy inputs of STREAM_STEPS steps of the streaming interface: map,
+    states, goals, existence, applied actions and sampled RTG bins."""
+    wc = cfg.waymo
+    rng = np.random.default_rng(seed)
+    P, L = wc.max_num_road_polylines, wc.max_num_road_pts_per_polyline
+    road = rng.normal(size=(B, P, L, 3)).astype(np.float32) * 20
+    road[..., 2] = rng.random((B, P, L)) > 0.2
+    road[:, -2:] = 0.0  # empty polylines
+    types12 = np.eye(5)[rng.integers(0, 5, size=(B, A))].astype(np.float32)
+    states = rng.normal(size=(STREAM_STEPS, B, A, 12)).astype(np.float32)
+    states[..., 7:] = types12
+    exist = (rng.random((STREAM_STEPS, B, A)) > 0.15).astype(np.float32)
+    return {
+        "road_points": road,
+        "road_types": np.eye(8)[rng.integers(0, 8, size=(B, P))].astype(np.float32),
+        "states": states,
+        "goals": rng.normal(size=(B, A, 5)).astype(np.float32),
+        "exist": exist,
+        "actions": rng.integers(0, wc.action_dim, size=(STREAM_STEPS, B, A)),
+        "rtgs": rng.integers(0, wc.rtg_discretization, size=(STREAM_STEPS, B, A, 3)),
+    }
+
+
+def jax_stream(jcfg, jm, params, d: dict) -> dict:
+    """The JAX model's memory, cross-attention K/V and STREAM_STEPS steps of
+    both decode passes and both heads on one cache (jitted), the cache in
+    the dtype the JAX rollout gives it (``model.kv_cache_dtype``)."""
+    from ctrl_sim_tpu.models.decoder import KVCache as JaxKVCache
+
+    mc, wc = jcfg.model, jcfg.waymo
+    B, A = d["goals"].shape[:2]
+    window = wc.train_context_length
+    jd = {k: jnp.asarray(v) for k, v in d.items()}
+
+    @jax.jit
+    def memory(p, rp, rt, s0, g, e0):
+        mem, valid = jm.apply(p, method=lambda m: m.encode_rollout_memory(
+            rp, rt, s0, g, e0, jnp.asarray(0, jnp.int32)))
+        return mem, valid, jm.apply(p, method=lambda m: m.precompute_memory_kv(mem))
+
+    @jax.jit
+    def step(p, pa, pe, s, g, e, r, t, cache, mem, valid, kv):
+        def body(m):
+            x, c = m.stream_action_state(pa, pe, s, g, e, t, cache, mem, valid, window, memory_kv=kv)
+            y, c = m.stream_rtg(r, e, t, c, mem, valid, window, memory_kv=kv)
+            return x, m.rtg_head(x), y, m.action_head(y), c
+        return jm.apply(p, method=body)
+
+    mem, valid, kv = memory(params, jd["road_points"], jd["road_types"], jd["states"][0], jd["goals"], jd["exist"][0])
+    cache_dtype = jnp.int8 if mc.kv_cache_dtype == "int8" else jnp.dtype(mc.compute_dtype)
+    cache = JaxKVCache.create(mc.num_decoder_layers, B, window, A, mc.num_token_types, mc.hidden_dim, cache_dtype)
+    prev_a, prev_e = jnp.zeros((B, A), jnp.int32), jnp.zeros((B, A))
+    per_step = []
+    for t in range(STREAM_STEPS):
+        *outs, cache = step(params, prev_a, prev_e, jd["states"][t], jd["goals"], jd["exist"][t],
+                            jd["rtgs"][t], jnp.asarray(t, jnp.int32), cache, mem, valid, kv)
+        per_step.append(outs)
+        prev_a, prev_e = jd["actions"][t], jd["exist"][t]
+    return {"memory": (mem, valid, kv), "steps": per_step, "cache": cache}
+
+
+def torch_stream(tcfg, tm, d: dict, premask: bool = False) -> dict:
+    """The port's counterpart of ``jax_stream``; ``premask`` feeds the
+    rollout's precomputed per-step masks instead of the masks built from
+    the ring labels."""
+    from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
+
+    mc = tcfg.model
+    B, A = d["goals"].shape[:2]
+    T = torch.as_tensor
+    with torch.no_grad():
+        mem, valid = tm.encode_rollout_memory(
+            T(d["road_points"]), T(d["road_types"]), T(d["states"][0]), T(d["goals"]), T(d["exist"][0]), 0)
+        kv = tm.precompute_memory_kv(mem)
+        cache = tm.new_cache(B, A)
+        m1, m2 = stream_step_masks(STREAM_STEPS, tcfg.waymo.train_context_length, A, mc.num_token_types, 0,
+                                   device="cpu")
+        prev_a, prev_e = torch.zeros((B, A), dtype=torch.long), torch.zeros((B, A))
+        per_step = []
+        for t in range(STREAM_STEPS):
+            x, cache = tm.stream_action_state(
+                prev_a, prev_e, T(d["states"][t]), T(d["goals"]), T(d["exist"][t]), t, cache, valid, kv,
+                mask_override=m1[t] if premask else None)
+            y, cache = tm.stream_rtg(T(d["rtgs"][t]), T(d["exist"][t]), t, cache, valid, kv,
+                                     mask_override=m2[t] if premask else None)
+            per_step.append((x, tm.rtg_head(x), y, tm.action_head(y)))
+            prev_a, prev_e = T(d["actions"][t]), T(d["exist"][t])
+    return {"memory": (mem, valid, kv), "steps": per_step, "cache": cache}
+
+
+class ReplaySampler:
+    """Hands out given RTG bins [T, E, A, 3] and action ids [T, E, A]."""
+
+    def __init__(self, rtg_bins, action_ids):
+        self.rtg_bins, self.action_ids = rtg_bins, action_ids
+
+    def rtgs(self, t, logits, tilt):
+        assert torch.isfinite(logits.float()).all()
+        return self.rtg_bins[t]
+
+    def actions(self, t, logits):
+        assert torch.isfinite(logits.float()).all()
+        return self.action_ids[t]
+
+
+def replay_jax_rollout(jcfg, tcfg, sb, tm, params, jm, seed: int = 1):
+    """The JAX ``run_streaming`` and the port's under its draws (recovered
+    from its RTGs and controls), both from the same scenes and weights."""
+    controlled = sb.moving & sb.agent_valid
+    tilt = jnp.asarray(np.random.default_rng(0).normal(size=(350, 3)).astype(np.float32))
+    ro = jax.jit(lambda s, p, c, r, tl: jax_run_streaming(jcfg, jm, p, s, c, r, tl))(
+        jax_scenario(sb), params, jnp.asarray(controlled), jax.random.PRNGKey(seed), tilt)
+    ro = jax.tree.map(np.array, ro)
+    wc = tcfg.waymo
+    rtg_bins = ttf.discretize_rtgs(ttf.normalize_rtgs(torch.as_tensor(ro.rtgs), wc), wc).long()
+    action_ids = ttf.discretize_actions(
+        torch.stack([torch.as_tensor(ro.acceleration), torch.as_tensor(ro.steering)], -1), wc).long()
+    out = run_streaming(tcfg, tm, torch_scenario(sb), torch.as_tensor(controlled), torch.Generator(),
+                        torch.tensor(np.asarray(tilt)), sampler=ReplaySampler(rtg_bins, action_ids))
+    return ro, out
