@@ -10,7 +10,9 @@ code is 0 only when every phase passed:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one nvcc per source, all started together), with
-   ptxas's registers and spills;
+   ptxas's registers and spills per kernel, and the HMMA (tensor-core)
+   instructions per kernel in the library's SASS (``cuobjdump``): the bf16
+   K3/K4 kernels must have some;
 3. kernels K1 (decode attention) and K2 (decode attention over the int8
    cache) against their plain PyTorch versions on the card: the rollout's
    shapes (256 lanes, Q = 32 and 16 queries, N = 1536 keys, H = 256 = 8
@@ -21,20 +23,31 @@ code is 0 only when every phase passed:
    plain version and one library call, F.scaled_dot_product_attention,
    kept as a yardstick only (for K2 over the K/V dequantized to q's dtype
    beforehand: not the same function, and it reads twice K2's bytes);
-4. kernels K3/K4 (training flash attention, forward and backward) against
-   the plain version on the card: output, lse, dq, dk and dv at the train
-   step's shape (B = 16, T = 32 x 24 x 3 = 2304, H = 256 = 8 x 32, bf16,
-   dropout 0.1), then at that T and width with B = 4 in bf16 and f32 with
-   dropout 0 and 0.1, a ragged T (29 x 23 x 3 = 2001) and a narrow width
-   (H = 64 = 4 x 16); tolerances 2e-2 absolute on outputs and 5e-2 of max
-   |grad| on gradients in bf16, 1e-4 and 1e-4 in f32. Times of the kernels,
-   the plain version and the library yardstick (SDPA with the boolean
+4. kernels K3/K4 (training flash attention, forward and backward; bf16 on
+   the tensor cores, f32 on CUDA cores) against the plain version on the
+   card: output, lse, dq, dk and dv at the train step's shape (B = 16,
+   T = 32 x 24 x 3 = 2304, H = 256 = 8 x 32, bf16, dropout 0.1 and 0), then
+   at that T and width with B = 4 in bf16 and f32 with dropout 0 and 0.1,
+   and in bf16 and f32 a ragged T (29 x 23 x 3 = 2001), the strict mask
+   (``attend_own_return_action``) and a sliding window, and in bf16 head
+   widths 16 and 64, a ragged strict case at d = 64 and a windowed 2-token
+   layout at d = 16: every case has partial tiles on the diagonal;
+   tolerances 2e-2 absolute on outputs and 5e-2 of max |grad| on gradients
+   in bf16, 1e-4 and 1e-4 in f32. Times of the kernels at dropout 0.1 and
+   0, the plain version and the library yardstick (SDPA with the boolean
    [T, T] mask, at dropout 0) on the train step's B = 16 inputs;
-5. small-input agreement: the streaming rollout at a toy width with
+5. golden-full: the forward at the deployed shape (hidden 256, 8 heads,
+   2 + 4 layers, 24 agents x 32 steps, 200 x 100 road points) with the
+   executed reference's weights (``tests/goldens/reference_model_full.npz``,
+   loaded by ``utils/torch_import.py``) against its logits: f32 through
+   K3's f32 kernel within 1e-4 + 1e-4 |ref|, and bf16 through the
+   tensor-core K3 within 1.5 x the error of the same bf16 forward on the
+   plain einsum attention;
+6. small-input agreement: the streaming rollout at a toy width with
    contacts on, with the bf16-width cache (K1) and the int8 cache (K2), on
    the card, replaying the draws of the same rollout on the CPU, agrees
    with it;
-6. the rollouts at full width: random weights from a seeded generator
+7. the rollouts at full width: random weights from a seeded generator
    (hidden 256, 8 heads, FF 1024, 2 + 4 layers, bf16 compute, bf16
    cross-attention scores), 256 synthetic scenes of 12 agents packed into
    16 slots, ``run_streaming`` for 90 steps with contacts on (bench.py's
@@ -43,11 +56,11 @@ code is 0 only when every phase passed:
    bf16 cache and contacts off, for the solver's share of the time; every
    output finite, and K1, K2, K1 launched exactly 2 passes x 4 layers x 90
    steps = 720 times;
-7. train-small-agreement: one train step at a toy width (f32, dropout and
+8. train-small-agreement: one train step at a toy width (f32, dropout and
    goal dropout 0) from the same params and batch on the card (K3/K4) and
    on the CPU (plain version): losses, gradients and updated params within
    1e-4;
-8. train at full width: the default model with dropout 0.1, 64 synthetic
+9. train at full width: the default model with dropout 0.1, 64 synthetic
    scenes of 12 agents replayed through physics (contacts on) into a
    ``ScenarioStore``, 10 steps of ``Trainer.make_train_step`` at global
    batch 64 as 16 x 4 accumulation; every loss and the gradient norm
@@ -62,10 +75,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 LANES = 256  # one bench chunk of scenes
@@ -76,10 +92,66 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet, dense rates belo
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 outside them
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # of max |grad|
+IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators, 64-row tiles, cp.async "
+                  "ring, mask only on partial tiles; f32: CUDA cores")
+# the bf16 K3/K4 kernels, which must run on the tensor cores (HMMA in their SASS)
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+# the executed reference at the deployed shape (tools/make_model_goldens.py --full)
+GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "reference_model_full.npz"
+GOLDEN_CONFIG = {
+    "model.hidden_dim": 256, "model.num_heads": 8, "model.dim_feedforward": 1024,
+    "model.num_transformer_encoder_layers": 2, "model.num_decoder_layers": 4, "model.remat": False,
+    "waymo.train_context_length": 32, "waymo.max_num_agents": 24,
+    "waymo.max_num_road_polylines": 200, "waymo.max_num_road_pts_per_polyline": 100,
+}
 
 
 def _phase(name: str, t0: float, detail: str = "") -> None:
     print(f"[{name}] {time.perf_counter() - t0:.2f}s {detail}".rstrip(), flush=True)
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_fwd_mma_kernel<32>`` (or ``flash_fwd_kernel<float, 32>``)
+    from a kernel's mangled name: the last of its length-prefixed names
+    (after the namespace's), then its template arguments."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while (m := re.match(r"\d+", mangled[i:])):
+        start = i + m.end()
+        i = start + int(m.group())
+        name = mangled[start:i]
+    t = re.match(r"I(f)?(?:13__nv_bfloat16)?Li(\d+)E", mangled[i:])
+    if not t:
+        return name
+    return f"{name}<{'float, ' if t.group(1) else ''}{t.group(2)}>"
+
+
+def _ptxas_lines(report: str):
+    """(kernel, line) for each register and spill line of nvcc's ptxas report."""
+    kernel = "?"
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            kernel = _kernel_label(m.group(1))
+        if "registers" in line or "spill" in line:
+            yield kernel, line.split(":", 1)[-1].strip()
+
+
+def _hmma_counts(library) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per kernel in the SASS of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_label(m.group(1))
+            counts[kernel] = 0
+        elif kernel and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
 
 
 def _median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -208,14 +280,17 @@ def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed):
             "out_err": out_err, "grad_err": grad_err, "grad_abs_err": grad_abs}
 
 
-def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen):
+def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen, own=False, window=None):
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _flash_inputs(B, steps, A, K, heads, d, getattr(torch, dtype), gen)
-    return _flash_compare(q, k, v, do, fa.MaskSpec(A, K, 0, False, None), heads, dropout_p,
-                          torch.tensor([0x5EED], device="cuda"))
+    row = _flash_compare(q, k, v, do, fa.MaskSpec(A, K, 0, own, window), heads, dropout_p,
+                         torch.tensor([0x5EED], device="cuda"))
+    if own or window:
+        row["shape"] += f" own={own} window={window}"
+    return row
 
 
 def _flash_bounds(B, T, H, heads, spec, dtype):
@@ -255,11 +330,13 @@ def _flash_main(gen):
     q, k, v, do = _flash_inputs(B, steps, A, K, heads, d, torch.bfloat16, gen)
     T = q.shape[1]
     res = {"check": _flash_compare(q, k, v, do, spec, heads, 0.1, seed),
+           "check_p0": _flash_compare(q, k, v, do, spec, heads, 0.0, seed),
            "bound": _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")}
     torch.cuda.empty_cache()
-    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed)
-    res["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed))
-    res["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, 0.1, seed))
+    for p, tag in ((0.1, ""), (0.0, "_p0")):
+        out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, p, seed)
+        res["fwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, p, seed))
+        res["bwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, p, seed))
 
     idx = torch.arange(T, device="cuda")
     mask = fa.block_mask(idx[:, None], idx[None, :], T, spec)
@@ -283,6 +360,61 @@ def _flash_main(gen):
     del ref_out, leaves
     torch.cuda.empty_cache()
     return res
+
+
+def _golden_full() -> str:
+    """The forward at the deployed shape against the executed reference
+    (``tests/goldens/reference_model_full.npz``), with its weights loaded
+    through the port's importer: f32 through K3's f32 kernel within the
+    CPU test's 1e-4, and bf16 through the tensor-core K3, whose error must
+    stay within 1.5 x that of the same bf16 forward on the plain einsum
+    attention."""
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+    from ctrl_sim_tpu_torch.params import from_flax_params
+    from ctrl_sim_tpu_torch.utils.torch_import import golden_batch, golden_state, params_from_torch_state
+
+    g = np.load(GOLDEN)
+    names = ("action_preds", "rtg_preds", "state_preds")
+    want = {n: torch.as_tensor(g[f"full_out_{n}"], device="cuda") for n in names}
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in golden_batch(g, "full").items()}
+    state = golden_state(g, "full")
+    errs = {}
+    for dtype, flash in (("float32", True), ("bfloat16", True), ("bfloat16", False)):
+        cfg = load_config({**GOLDEN_CONFIG, "model.compute_dtype": dtype, "model.use_flash_attention": flash})
+        model = CtRLSim(cfg)
+        model.load_state_dict(from_flax_params(params_from_torch_state(state, cfg)), strict=True)
+        model.eval()
+        f0 = fa.flash_mha_fwd.launches
+        with torch.no_grad():
+            out = model(batch)
+        torch.cuda.synchronize()
+        launched = fa.flash_mha_fwd.launches - f0
+        expected = cfg.model.num_decoder_layers if flash else 0
+        if launched != expected:
+            raise AssertionError(f"golden forward {dtype} flash={flash}: K3 launched {launched} times, "
+                                 f"expected {expected}")
+        got = {n: getattr(out, n).float() for n in names}
+        if not all(torch.isfinite(x).all() for x in got.values()):
+            raise AssertionError(f"golden forward {dtype} flash={flash}: non-finite outputs")
+        errs[dtype, flash] = max((got[n] - want[n]).abs().max().item() for n in names)
+        if dtype == "float32":
+            excess = max(((got[n] - want[n]).abs() - 1e-4 - 1e-4 * want[n].abs()).max().item() for n in names)
+            if excess > 0:
+                raise AssertionError(f"golden forward f32 (K3 f32 kernel) off the reference by "
+                                     f"{errs[dtype, flash]}: beyond 1e-4 + 1e-4 |ref| by {excess}")
+        del model, out
+    ratio = errs["bfloat16", True] / errs["bfloat16", False]
+    if ratio > 1.5:
+        raise AssertionError(f"golden forward bf16: K3 (tensor cores) error {errs['bfloat16', True]} is "
+                             f"{ratio:.3f} x the plain attention's {errs['bfloat16', False]} (limit 1.5)")
+    return (f"B=1 T=2304 H=256/8, reference weights; max |d logits| f32 via K3 f32 {errs['float32', True]:.3g} "
+            f"(within 1e-4 + 1e-4 |ref|); bf16 via K3 tensor cores {errs['bfloat16', True]:.4g}, bf16 plain "
+            f"attention {errs['bfloat16', False]:.4g}, ratio {ratio:.3f} (limit 1.5)")
 
 
 class _RecordingSampler:
@@ -475,6 +607,7 @@ def main() -> int:
         from ctrl_sim_tpu_torch.data.transforms import get_tilt_logits
         from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
         from ctrl_sim_tpu_torch.ops import attention, build
+        from ctrl_sim_tpu_torch.ops import flash_attention as fa
         from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
         from ctrl_sim_tpu_torch.params import init_params
         from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
@@ -496,11 +629,16 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     for source, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {source}: {line.strip()}")
+        for kernel, line in _ptxas_lines(report):
+            print(f"  {source}: {kernel}: {line}")
     build_s = time.perf_counter() - t0
-    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled")
+    hmma = _hmma_counts(build.library_path("flash_attention.cu"))
+    for kernel, count in sorted(hmma.items()):
+        print(f"  flash_attention.cu: {kernel}: {count} HMMA")
+    bare = [f"{k}<{d}>" for k in MMA_KERNELS for d in fa.HEAD_DIMS if not hmma.get(f"{k}<{d}>")]
+    if bare:
+        raise AssertionError(f"bf16 K3/K4 kernels without tensor-core (HMMA) instructions: {bare}")
+    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K3/K4 kernel")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -545,20 +683,29 @@ def main() -> int:
     for dtype in ("bfloat16", "float32"):
         for p in (0.0, 0.1):
             flash[f"train-shape {dtype} p={p}"] = _flash_case(4, 32, 24, 3, 8, 32, dtype, p, gen)
-    flash["ragged bfloat16"] = _flash_case(4, 29, 23, 3, 8, 32, "bfloat16", 0.1, gen)
-    flash["ragged float32"] = _flash_case(4, 29, 23, 3, 8, 32, "float32", 0.1, gen)
+    flash["train-step bfloat16 p=0.0"] = ft["check_p0"]
+    for dtype in ("bfloat16", "float32"):
+        flash[f"ragged {dtype}"] = _flash_case(4, 29, 23, 3, 8, 32, dtype, 0.1, gen)
+        flash[f"strict {dtype}"] = _flash_case(4, 12, 24, 3, 8, 32, dtype, 0.1, gen, own=True)
+        flash[f"window {dtype}"] = _flash_case(4, 16, 24, 3, 8, 32, dtype, 0.1, gen, window=5)
     flash["narrow bfloat16"] = _flash_case(4, 32, 24, 3, 4, 16, "bfloat16", 0.1, gen)
+    flash["wide bfloat16"] = _flash_case(4, 32, 24, 3, 4, 64, "bfloat16", 0.1, gen)
+    flash["wide ragged strict bfloat16 p=0"] = _flash_case(2, 9, 7, 3, 2, 64, "bfloat16", 0.0, gen, own=True)
+    flash["narrow window 2-token bfloat16"] = _flash_case(3, 20, 5, 2, 4, 16, "bfloat16", 0.1, gen, window=3)
     for name, row in flash.items():
         print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, "
               f"gradient err {row['grad_err']:.3g} of max |grad| ({row['grad_abs_err']:.3g} absolute)")
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = ft["bound"]["fwd"], ft["bound"]["bwd"]
-    print(f"  K3 forward, B=16 T=2304 H=256/8 bf16 p=0.1: kernel {ft['fwd_ms']:.4f} ms, bound "
-          f"{fwd_bound:.4f} ms ({fwd_by}; {ft['bound']['pairs']} visible pairs), plain "
-          f"{ft['plain_fwd_ms']:.4f} ms, library (SDPA, bool mask, p=0) {ft['library_fwd_ms']:.4f} ms")
-    print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), "
-          f"plain (autograd) {ft['plain_bwd_ms']:.4f} ms, library (SDPA backward) "
-          f"{ft['library_bwd_ms']:.4f} ms")
+    print(f"  K3 forward, B=16 T=2304 H=256/8 bf16 (tensor cores): kernel {ft['fwd_ms']:.4f} ms at p=0.1, "
+          f"{ft['fwd_ms_p0']:.4f} ms at p=0; bound {fwd_bound:.4f} ms ({fwd_by}; {ft['bound']['pairs']} visible "
+          f"pairs), plain {ft['plain_fwd_ms']:.4f} ms, library (SDPA, bool mask, p=0) {ft['library_fwd_ms']:.4f} ms")
+    print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms at p=0.1, {ft['bwd_ms_p0']:.4f} ms at p=0; "
+          f"bound {bwd_bound:.4f} ms ({bwd_by}), plain (autograd) {ft['plain_bwd_ms']:.4f} ms, library (SDPA "
+          f"backward, p=0) {ft['library_bwd_ms']:.4f} ms")
     _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
+
+    t0 = time.perf_counter()
+    _phase("golden-full", t0, _golden_full())
 
     t0 = time.perf_counter()
     detail = "; ".join(_small_agreement(kv) for kv in ("bfloat16", "int8"))
@@ -673,11 +820,13 @@ def main() -> int:
             "max_abs_err": main_flash["out_err"],
             "ms": ft["fwd_ms"],
             "kernel_ms": ft["fwd_ms"],
+            "ms_dropout_0": ft["fwd_ms_p0"],
             "plain_ms": ft["plain_fwd_ms"],
             "bound_ms": fwd_bound,
             "bound_by": fwd_by,
             "library_ms": ft["library_fwd_ms"],
-            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1",
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
+            "implementation": IMPLEMENTATION,
         },
         {
             "name": "flash_mha_bwd",
@@ -688,11 +837,13 @@ def main() -> int:
             "max_abs_err": main_flash["grad_abs_err"],
             "ms": ft["bwd_ms"],
             "kernel_ms": ft["bwd_ms"],
+            "ms_dropout_0": ft["bwd_ms_p0"],
             "plain_ms": ft["plain_bwd_ms"],
             "bound_ms": bwd_bound,
             "bound_by": bwd_by,
             "library_ms": ft["library_bwd_ms"],
-            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1",
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
+            "implementation": IMPLEMENTATION,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

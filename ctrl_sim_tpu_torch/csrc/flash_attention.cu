@@ -18,39 +18,72 @@
 //   delta = rowsum(dO . O), dP = keep ? dO V^T / (1 - p_drop) : 0,
 //   dS = P (dP - delta) s, dQ = dS K, dK = dS^T Q, dV = dropout(P)^T dO.
 //
-// What bounds them: the arithmetic. At the trainer's shape (B = 16,
-// T = 32 steps x 24 agents x 3 token types = 2304, H = 256 = 8 x 32, bf16)
-// the mask admits 2,628,864 of the 5,308,416 (query, key) pairs; counting
-// only those, the forward does 4 * pairs * H * B = 43.1 GFLOP (0.044 ms at
-// the bf16 tensor-core rate) against 76.7 MB of inputs and outputs
-// (0.023 ms), the backward 10 * pairs * H * B = 107.7 GFLOP (0.109 ms)
-// against 152 MB. This version runs the products on CUDA cores from
-// fp32 shared-memory tiles, where they cannot come near that rate.
+// What bounds them. At the trainer's shape (B = 16, T = 32 steps x 24
+// agents x 3 token types = 2304, H = 256 = 8 x 32, bf16) the mask admits
+// 2,628,864 of the 5,308,416 (query, key) pairs; counting only those, the
+// forward does 4 * pairs * H * B = 43.1 GFLOP (0.044 ms at the bf16
+// tensor-core rate) against 76.7 MB of inputs and outputs (0.023 ms), the
+// backward 10 * pairs * H * B = 107.7 GFLOP (0.109 ms) against 152 MB. Two
+// kinds of per-element work stay on the CUDA cores whatever the design, and
+// set floors the bound does not count: one exp per admitted element and
+// pass (336 M elements at 16 per SM per clock, about 0.08 ms a pass; K3 has
+// one pass, K4 two, since both its kernels recompute P), and with dropout
+// the murmur3 keep bit, about 10 integer operations an element (about
+// 0.2 ms a pass at 64 per SM per clock).
 //
-// Design (simple and right first; TMA, wgmma and tensor cores come later):
-// - the TPU kernel holds a lane's whole K/V in VMEM; here K/V stream through
-//   32-row fp32 shared-memory tiles. The forward and dq kernels give each
-//   block one (b, h, 32-query tile); 4 warps own 8 query rows each and each
-//   lane one key of the tile, so every shared-memory read feeds 8 FMAs. The
-//   forward keeps an online softmax (running max and denominator); the
-//   dropped weights are left out of the weighted sum but not of the
-//   denominator, which is what dropout after normalization means.
+// bf16: tensor cores (flash_*_mma_kernel). FlashAttention-2's layout with
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators): a block of 4 warps
+// owns 64 rows, 16 a warp, and streams 64-row tiles of the other side
+// through a 2-stage cp.async ring of bf16 shared-memory tiles, rows padded
+// to D + 8 elements so that ldmatrix (.trans where the product needs the
+// tile transposed) is free of bank conflicts. The fixed side's operands
+// (Q, and dO in the dq kernel; K and V in the dk/dv kernel) are loaded once
+// from device memory straight into A fragments. Scores stay in fp32
+// accumulators; the online softmax works on the fragments with quad
+// shuffles; P (after the keep bit) and dS are rounded to bf16 and reused in
+// registers as the A operand of the next product, never going through
+// shared memory. Each output is written once, in bf16. The kernels are
+// latency-bound, not bound by the tensor cores: each works through its
+// streamed tile 16 or 32 columns at a time, which keeps few scores live, and
+// __launch_bounds__ caps the registers so that 4-6 blocks share an SM
+// without spilling (d = 32).
+// - The tile schedule comes from the wrapper (ops/flash_attention.py:
+//   tile_table): per 64-row tile, the range of tiles of the other side that
+//   hold a visible pair, and within it the run of fully visible tiles, where
+//   the predicate is not evaluated at all; tiles outside the range are never
+//   touched. With the default mask every key of an earlier timestep is
+//   visible, so only the tiles on a query tile's own timestep are partial.
+//   Partial tiles read the streamed side's (t, a, k) coordinates from
+//   shared memory, computed once per tile, and the fixed side's from
+//   registers. Entries run heaviest first, so the longest blocks start
+//   first.
+// - The backward is two kernels and no atomics, so it is deterministic:
+//   the dq kernel walks key tiles per 64-query tile (and writes delta for
+//   the second), the dk/dv kernel walks the query tiles that see each
+//   64-key tile, computing S^T and dP^T with keys as rows.
+// - Rows and keys past T load as zeros; their scores are -inf (keys) or
+//   -1e30 (rows) and take no weight, so nothing of them reaches an output.
+//
+// f32: CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkdv_kernel), kept for the 1e-4 agreement of the f32 path,
+// which TF32 tensor cores cannot hold:
+// - K/V stream through 32-row fp32 shared-memory tiles. The forward and dq
+//   kernels give each block one (b, h, 32-query tile); 4 warps own 8 query
+//   rows each and each lane one key of the tile, so every shared-memory
+//   read feeds 8 FMAs. The forward keeps an online softmax (running max and
+//   denominator); the dropped weights are left out of the weighted sum but
+//   not of the denominator, which is what dropout after normalization means.
 // - a key is visible only if its timestep is at most the query's (the
 //   predicate implies it for every layout), so each query tile stops at the
 //   end of its last row's timestep, and a sliding window starts it late:
 //   masked pairs beyond those bounds are never computed, and each weight
 //   they would have taken is exactly 0 in fp32 (exp of -1e30).
-// - the backward is two kernels and no atomics, so it is deterministic:
-//   dq_kernel produces dQ per query tile (and delta, kept for the second),
-//   dkdv_kernel produces dK and dV per 32-key tile, walking the query tiles
+// - dkdv_kernel produces dK and dV per 32-key tile, walking the query tiles
 //   that can see it, with warps owning 8 keys and lanes one query each;
-//   both accumulate in fp32 registers and write once, in the inputs' type.
-// - rows and keys past T (the ragged last tile) load as zeros and take no
-//   weight, so nothing of them reaches dK/dV (0 * garbage would).
-// - the tile streamed by each loop (K/V in the forward and dq kernels, Q/dO
-//   in dkdv_kernel) is loaded 16 bytes a thread into registers one tile
-//   ahead, so its device-memory latency overlaps the current tile's
-//   arithmetic; waiting for each tile leaves the kernels latency-bound.
+//   both backward kernels accumulate in fp32 registers and write once.
+// - the tile streamed by each loop is loaded 16 bytes a thread into
+//   registers one tile ahead, so its device-memory latency overlaps the
+//   current tile's arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,9 +107,7 @@ struct MaskSpec {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -101,11 +132,13 @@ __device__ __forceinline__ bool visible(int ti, int ai, int ii, int tj, int aj, 
   return out;
 }
 
-// flash_attention.py:_dropout_keep: murmur3 finalizer over (seed, b, h, row, col)
-__device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t b, uint32_t h, uint32_t row,
-                                         uint32_t col, uint32_t threshold) {
-  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
-  x = x ^ (b * 0xC2B2AE3Du) ^ (h * 0x27D4EB2Fu) ^ seed;
+// flash_attention.py:_dropout_keep: the murmur3 finalizer over
+// (row * kHashRow) ^ (col * kHashCol) ^ (b * kHashB) ^ (h * kHashH) ^ seed.
+// The tensor-core kernels build that word from per-row and per-column parts.
+constexpr uint32_t kHashRow = 0x9E3779B1u, kHashCol = 0x85EBCA77u;
+constexpr uint32_t kHashB = 0xC2B2AE3Du, kHashH = 0x27D4EB2Fu;
+
+__device__ __forceinline__ bool keep_hashed(uint32_t x, uint32_t threshold) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
@@ -114,18 +147,14 @@ __device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t b, uint32_t h, 
   return x < threshold;
 }
 
+__device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t b, uint32_t h, uint32_t row,
+                                         uint32_t col, uint32_t threshold) {
+  return keep_hashed(row * kHashRow ^ col * kHashCol ^ b * kHashB ^ h * kHashH ^ seed, threshold);
+}
+
 // 16 bytes of T, widened to fp32 and stored at dst (16-byte aligned).
 __device__ __forceinline__ void store_vec(const uint4& raw, float* dst, float) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
-}
-__device__ __forceinline__ void store_vec(const uint4& raw, float* dst, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; i += 2) {
-    const float2 a = __bfloat1622float2(h[i]);
-    const float2 b = __bfloat1622float2(h[i + 1]);
-    *reinterpret_cast<float4*>(dst + 2 * i) = make_float4(a.x, a.y, b.x, b.y);
-  }
 }
 
 // One tile of kTile rows of one head's D columns held in registers as raw
@@ -183,7 +212,7 @@ __device__ __forceinline__ void key_range(int q0, int n, const MaskSpec& s, int*
 }
 
 // ---------------------------------------------------------------------------
-// K3: forward
+// K3 (f32): forward on CUDA cores
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -312,7 +341,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// K4, part 1: dQ per query tile, and delta = rowsum(dO . O) for part 2
+// K4 (f32), part 1: dQ per query tile, and delta = rowsum(dO . O) for part 2
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -444,7 +473,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// K4, part 2: dK and dV per key tile, over the query tiles that can see it
+// K4 (f32), part 2: dK and dV per key tile, over the query tiles that can see it
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -602,11 +631,578 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on tensor cores: mma.sync.m16n8k16, cp.async, ldmatrix
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kBlock = 64;  // rows per block (16 a warp) and rows per streamed tile
+// Columns of a streamed tile each kernel works on at once (8 per block of
+// NB), and the blocks an SM must hold (__launch_bounds__), chosen together
+// on the card at d = 32: narrower chunks keep fewer scores live, so the
+// register cap that lets 4-6 blocks share an SM costs no spills. d = 64
+// needs twice the accumulators and keeps fewer blocks.
+constexpr int kFwdNB = 4, kDqNB = 2, kDkdvNB = 2;
+constexpr int fwd_min_blocks(int D) { return D > 32 ? 3 : 6; }
+constexpr int dq_min_blocks(int D) { return D > 32 ? 2 : 5; }
+constexpr int dkdv_min_blocks(int D) { return D > 32 ? 2 : 4; }
+// One entry of the wrapper's tile table: the block's own tile, and the range
+// [begin, end) of tiles of the other side it walks, of which [full_begin,
+// full_end) are fully visible.
+struct TileRange {
+  int tile, begin, full_begin, full_end, end;
+  __device__ __forceinline__ explicit TileRange(const int* __restrict__ e)
+      : tile(e[0]), begin(e[1]), full_begin(e[2]), full_end(e[3]), end(e[4]) {}
+  __device__ __forceinline__ bool partial(int t) const { return t < full_begin || t >= full_end; }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from src to shared dst; zeros where !pred (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a b for a 16x16 bf16 A fragment and a 16x8 bf16 B fragment (b0, b1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// The A fragments of rows [r0, r0 + 16) x D of a row-major bf16 matrix with
+// row stride H, straight from device memory; rows >= n are zeros. Thread
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t + 1
+// and 2t + 8, 2t + 9 of each 16-wide step.
+template <int KS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const __nv_bfloat16* __restrict__ x,
+                                             int r0, int n, int H, int g, int t) {
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = 16 * ks + 2 * t;
+    a[ks][0] = ra < n ? ldg_u32(x + (size_t)ra * H + c) : 0u;
+    a[ks][1] = rb < n ? ldg_u32(x + (size_t)rb * H + c) : 0u;
+    a[ks][2] = ra < n ? ldg_u32(x + (size_t)ra * H + c + 8) : 0u;
+    a[ks][3] = rb < n ? ldg_u32(x + (size_t)rb * H + c + 8) : 0u;
+  }
+}
+
+// Rows [r0, r0 + kBlock) x D of x (row stride H) into a padded shared tile
+// by cp.async, 16 bytes a copy; rows >= n are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint16_t (*dst)[D + 8], const __nv_bfloat16* __restrict__ x,
+                                                int r0, int n, int H) {
+  constexpr int kPerRow = D / 8;
+  constexpr int kCopies = kBlock * kPerRow / kMmaThreads;
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    const int row = c / kPerRow, col = (c % kPerRow) * 8;
+    const bool ok = r0 + row < n;
+    cp_async16(&dst[row][col], x + (size_t)(ok ? r0 + row : 0) * H + col, ok);
+  }
+}
+
+// acc[nb] += A . tile^T over the head width for the 8 x NB rows of the tile
+// at tile[0]: the S = Q K^T pattern, with the tile's rows as the product's
+// columns (ldmatrix without .trans).
+template <int D, int NB>
+__device__ __forceinline__ void mma_a_tile_t(float (&acc)[NB][4], const uint32_t (&a)[D / 16][4],
+                                             const uint16_t (*tile)[D + 8], int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+    for (int p = 0; p < NB / 2; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, &tile[16 * p + (lane & 7) + ((lane >> 4) << 3)][16 * ks + (((lane >> 3) & 1) << 3)]);
+      mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
+      mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
+    }
+  }
+}
+
+// acc[db] += P . tile for P the 16 x 8NB fp32 accumulators s (rounded to
+// bf16 A fragments in registers) and the 8NB rows at tile[0] as the
+// reduction (ldmatrix .trans): the O = P V pattern.
+template <int D, int NB>
+__device__ __forceinline__ void mma_p_tile(float (&acc)[D / 8][4], const float (&s)[NB][4],
+                                           const uint16_t (*tile)[D + 8], int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, &tile[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)][16 * dp + ((lane >> 4) << 3)]);
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Writes rows (g, g + 8) of a warp's 16 x D fp32 accumulators, times mul, as bf16.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x, const float (&acc)[D / 8][4],
+                                           const int (&row)[2], const float (&mul)[2], int n, int H, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= n) continue;
+    __nv_bfloat16* p = x + (size_t)row[r] * H + 2 * t;
+#pragma unroll
+    for (int db = 0; db < D / 8; ++db)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * db) =
+          __floats2bfloat162_rn(acc[db][2 * r] * mul[r], acc[db][2 * r + 1] * mul[r]);
+  }
+}
+
+// The streamed tiles of the forward and dq kernels: K and V, two stages,
+// and each key's (t, a, k) coordinates for the partial tiles.
+template <int D>
+struct KVStages {
+  uint16_t k[2][kBlock][D + 8];
+  uint16_t v[2][kBlock][D + 8];
+  int t[2][kBlock], a[2][kBlock], kind[2][kBlock];
+
+  __device__ __forceinline__ void fetch(int stage, int tile, const __nv_bfloat16* __restrict__ kp,
+                                        const __nv_bfloat16* __restrict__ vp, int n, int H, const MaskSpec& s) {
+    const int n0 = tile * kBlock;
+    load_tile_async<D>(k[stage], kp, n0, n, H);
+    load_tile_async<D>(v[stage], vp, n0, n, H);
+    if (threadIdx.x < kBlock) {
+      const int j = n0 + threadIdx.x;
+      t[stage][threadIdx.x] = j / (s.A * s.K);
+      a[stage][threadIdx.x] = (j / s.K) % s.A;
+      kind[stage][threadIdx.x] = j % s.K;
+    }
+    cp_async_commit();
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K3 (bf16): forward on tensor cores
+// ---------------------------------------------------------------------------
+
+template <int D, int NB>
+__global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const long long* __restrict__ seed_ptr,
+                     const int* __restrict__ table, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
+                     uint32_t threshold, int use_dropout) {
+  __shared__ __align__(128) KVStages<D> sm;
+  const TileRange tr(table + 5 * blockIdx.y);
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = tr.tile * kBlock + warp * 16;
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+
+  int row[2], ti[2], ai[2];
+  uint32_t rowh[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = r0 + g + 8 * r;
+    ti[r] = row[r] / ak;
+    ai[r] = (row[r] / spec.K) % spec.A;
+    rowh[r] = (uint32_t)row[r] * kHashRow ^ bhs;
+  }
+  if (tr.begin < tr.end) sm.fetch(0, tr.begin, k + base, v + base, n, H, spec);
+  uint32_t qf[D / 16][4];
+  load_a_frags<D / 16>(qf, q + base, r0, n, H, g, t);
+
+  // running max (log2 units) and per-thread partial denominators of rows g, g + 8
+  float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
+    const int st = it & 1;
+    if (tile + 1 < tr.end) {
+      sm.fetch(st ^ 1, tile + 1, k + base, v + base, n, H, spec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool partial = tr.partial(tile);
+
+#pragma unroll
+    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB keys at a time
+      const int c0 = 8 * NB * ch, n0 = tile * kBlock + c0;
+      float s[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+      mma_a_tile_t<D, NB>(s, qf, sm.k[st] + c0, lane);
+
+      // scores in log2 units; masked: -1e30, keys past T: -inf (no weight even in a masked row)
+      if (partial) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = c0 + 8 * nb + 2 * t + e, j = n0 + 8 * nb + 2 * t + e;
+            const int tj = sm.t[st][c], aj = sm.a[st][c], kj = sm.kind[st][c];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float& x = s[nb][2 * r + e];
+              x = j >= n ? -INFINITY
+                         : ((row[r] < n && visible(ti[r], ai[r], row[r], tj, aj, kj, j, spec)) ? x * sl2 : kMaskNeg);
+            }
+          }
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[nb][i] *= sl2;
+      }
+
+      // online softmax on the fragments: rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mu = mx == -INFINITY ? 0.f : mx;
+        const float alpha = fast_exp2(m[r] - mu);
+        m[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          s[nb][2 * r] = fast_exp2(s[nb][2 * r] - mu);
+          s[nb][2 * r + 1] = fast_exp2(s[nb][2 * r + 1] - mu);
+          sum += s[nb][2 * r] + s[nb][2 * r + 1];
+        }
+        l[r] = l[r] * alpha + sum;
+#pragma unroll
+        for (int db = 0; db < D / 8; ++db) {
+          acc[db][2 * r] *= alpha;
+          acc[db][2 * r + 1] *= alpha;
+        }
+      }
+      if (use_dropout) {  // dropped weights stay in l, not in O
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t ch_hash = (uint32_t)(n0 + 2 * t + e) * kHashCol;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (!keep_hashed(rowh[r] ^ (ch_hash + (uint32_t)(8 * nb) * kHashCol), threshold))
+                s[nb][2 * r + e] = 0.f;
+        }
+      }
+      mma_p_tile<D, NB>(acc, s, sm.v[st] + c0, lane);
+    }
+    __syncthreads();  // stage st is consumed before the next fetch overwrites it
+  }
+
+  float mul[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    mul[r] = l[r] > 0.f ? inv_keep / l[r] : 0.f;
+    if (t == 0 && row[r] < n) lse[((size_t)b * heads + h) * n + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+  }
+  store_rows<D>(o + base, acc, row, mul, n, H, t);
+}
+
+// ---------------------------------------------------------------------------
+// K4 (bf16), part 1: dQ per 64-query tile, and delta = rowsum(dO . O)
+// ---------------------------------------------------------------------------
+
+template <int D, int NB>
+__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const long long* __restrict__ seed_ptr, const int* __restrict__ table,
+                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int n, int H, int heads,
+                        MaskSpec spec, float scale, float inv_keep, uint32_t threshold, int use_dropout) {
+  __shared__ __align__(128) KVStages<D> sm;
+  const TileRange tr(table + 5 * blockIdx.y);
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = tr.tile * kBlock + warp * 16;
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const size_t lrow = ((size_t)b * heads + h) * n;  // this (b, h)'s row of lse and delta
+  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;
+  const float dp_mul = scale * inv_keep;
+
+  if (tr.begin < tr.end) sm.fetch(0, tr.begin, k + base, v + base, n, H, spec);
+  uint32_t qf[D / 16][4], df[D / 16][4], of[D / 16][4];
+  load_a_frags<D / 16>(qf, q + base, r0, n, H, g, t);
+  load_a_frags<D / 16>(df, dout + base, r0, n, H, g, t);
+  load_a_frags<D / 16>(of, o + base, r0, n, H, g, t);
+
+  int row[2], ti[2], ai[2];
+  uint32_t rowh[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = r0 + g + 8 * r;
+    ti[r] = row[r] / ak;
+    ai[r] = (row[r] / spec.K) % spec.A;
+    rowh[r] = (uint32_t)row[r] * kHashRow ^ bhs;
+    // delta from the fragments: this thread's columns of row r, summed over the quad
+    float part = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t dw = df[ks][r + 2 * half], ow = of[ks][r + 2 * half];
+        const float2 dd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw));
+        const float2 oo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow));
+        part += dd.x * oo.x + dd.y * oo.y;
+      }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dlt[r] = part * scale;  // delta s
+    lse2[r] = row[r] < n ? lse[lrow + row[r]] * kLog2e : 0.f;
+    if (t == 0 && row[r] < n) delta[lrow + row[r]] = part;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
+    const int st = it & 1;
+    if (tile + 1 < tr.end) {
+      sm.fetch(st ^ 1, tile + 1, k + base, v + base, n, H, spec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool partial = tr.partial(tile);
+#pragma unroll
+    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB keys at a time
+      const int c0 = 8 * NB * ch, n0 = tile * kBlock + c0;
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
+      mma_a_tile_t<D, NB>(s, qf, sm.k[st] + c0, lane);
+      mma_a_tile_t<D, NB>(dp, df, sm.v[st] + c0, lane);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * nb + 2 * t + e, j = n0 + 8 * nb + 2 * t + e;
+          const uint32_t ch_hash = (uint32_t)j * kHashCol;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 2 * r + e;
+            bool vis = true;
+            if (partial)
+              vis = j < n && row[r] < n &&
+                    visible(ti[r], ai[r], row[r], sm.t[st][c], sm.a[st][c], sm.kind[st][c], j, spec);
+            const float p = vis ? fast_exp2(fmaf(s[nb][i], sl2, -lse2[r])) : 0.f;
+            float dps = dp[nb][i] * dp_mul;  // dP s, dropped entries 0
+            if (use_dropout && !keep_hashed(rowh[r] ^ ch_hash, threshold)) dps = 0.f;
+            s[nb][i] = p * (dps - dlt[r]);  // dS = P (dP - delta) s
+          }
+        }
+      mma_p_tile<D, NB>(acc, s, sm.k[st] + c0, lane);  // dQ += dS K
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq + base, acc, row, one, n, H, t);
+}
+
+// ---------------------------------------------------------------------------
+// K4 (bf16), part 2: dK and dV per 64-key tile, over the query tiles that see it
+// ---------------------------------------------------------------------------
+
+// The streamed tiles of the dk/dv kernel: Q and dO, two stages, and each
+// query's lse, delta and (t, a) coordinates.
+template <int D>
+struct QStages {
+  uint16_t q[2][kBlock][D + 8];
+  uint16_t dout[2][kBlock][D + 8];
+  float lse[2][kBlock], delta[2][kBlock];
+  int t[2][kBlock], a[2][kBlock];
+
+  __device__ __forceinline__ void fetch(int stage, int tile, const __nv_bfloat16* __restrict__ qp,
+                                        const __nv_bfloat16* __restrict__ dp, const float* __restrict__ lse_row,
+                                        const float* __restrict__ delta_row, int n, int H, const MaskSpec& s) {
+    const int m0 = tile * kBlock;
+    load_tile_async<D>(q[stage], qp, m0, n, H);
+    load_tile_async<D>(dout[stage], dp, m0, n, H);
+    if (threadIdx.x < kBlock) {
+      const int i = m0 + threadIdx.x;
+      const bool ok = i < n;
+      cp_async4(&lse[stage][threadIdx.x], lse_row + (ok ? i : 0), ok);
+      cp_async4(&delta[stage][threadIdx.x], delta_row + (ok ? i : 0), ok);
+      t[stage][threadIdx.x] = i / (s.A * s.K);
+      a[stage][threadIdx.x] = (i / s.K) % s.A;
+    }
+    cp_async_commit();
+  }
+};
+
+template <int D, int NB>
+__global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks(D))
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const long long* __restrict__ seed_ptr, const int* __restrict__ table,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n, int H,
+                          int heads, MaskSpec spec, float scale, float inv_keep, uint32_t threshold,
+                          int use_dropout) {
+  __shared__ __align__(128) QStages<D> sm;
+  const TileRange tr(table + 5 * blockIdx.y);
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = tr.tile * kBlock + warp * 16;  // this warp's 16 keys
+  const size_t base = (size_t)b * n * H + (size_t)h * D;
+  const size_t lrow = ((size_t)b * heads + h) * n;
+  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const int ak = spec.A * spec.K;
+  const float sl2 = scale * kLog2e;
+  const float dp_mul = scale * inv_keep;
+
+  if (tr.begin < tr.end) sm.fetch(0, tr.begin, q + base, dout + base, lse + lrow, delta + lrow, n, H, spec);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a_frags<D / 16>(kf, k + base, r0, n, H, g, t);
+  load_a_frags<D / 16>(vf, v + base, r0, n, H, g, t);
+
+  int key[2], tj[2], aj[2], kj[2];
+  uint32_t keyh[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key[r] = r0 + g + 8 * r;
+    tj[r] = key[r] / ak;
+    aj[r] = (key[r] / spec.K) % spec.A;
+    kj[r] = key[r] % spec.K;
+    keyh[r] = (uint32_t)key[r] * kHashCol ^ bhs;
+  }
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int db = 0; db < D / 8; ++db)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[db][i] = dv_acc[db][i] = 0.f;
+
+  for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
+    const int st = it & 1;
+    if (tile + 1 < tr.end) {
+      sm.fetch(st ^ 1, tile + 1, q + base, dout + base, lse + lrow, delta + lrow, n, H, spec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bool partial = tr.partial(tile);
+#pragma unroll
+    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB queries at a time
+      // S^T = K Q^T and dP^T = V dO^T: keys are rows, these queries columns
+      const int c0 = 8 * NB * ch, m0 = tile * kBlock + c0;
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
+      mma_a_tile_t<D, NB>(s, kf, sm.q[st] + c0, lane);
+      mma_a_tile_t<D, NB>(dp, vf, sm.dout[st] + c0, lane);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = c0 + 8 * nb + 2 * t;
+        const float2 lse_c = *reinterpret_cast<const float2*>(&sm.lse[st][c]);
+        const float2 dlt_c = *reinterpret_cast<const float2*>(&sm.delta[st][c]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = m0 + 8 * nb + 2 * t + e;
+          const float lse2 = (e ? lse_c.y : lse_c.x) * kLog2e, dlt = (e ? dlt_c.y : dlt_c.x) * scale;
+          const uint32_t qh = (uint32_t)i * kHashRow;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 2 * r + e;
+            bool vis = true;
+            if (partial)
+              vis = i < n && key[r] < n &&
+                    visible(sm.t[st][c + e], sm.a[st][c + e], i, tj[r], aj[r], kj[r], key[r], spec);
+            const float p = vis ? fast_exp2(fmaf(s[nb][x], sl2, -lse2)) : 0.f;
+            float pd = p * inv_keep, dps = dp[nb][x] * dp_mul;
+            if (use_dropout && !keep_hashed(qh ^ keyh[r], threshold)) pd = dps = 0.f;
+            s[nb][x] = pd;               // dropout(P)^T
+            dp[nb][x] = p * (dps - dlt);  // dS^T
+          }
+        }
+      }
+      mma_p_tile<D, NB>(dv_acc, s, sm.dout[st] + c0, lane);  // dV += dropout(P)^T dO
+      mma_p_tile<D, NB>(dk_acc, dp, sm.q[st] + c0, lane);    // dK += dS^T Q
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dk + base, dk_acc, key, one, n, H, t);
+  store_rows<D>(dv + base, dv_acc, key, one, n, H, t);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse, *seed;
+  const int* table;  // the bf16 kernels' tile schedule, [2, ceil(n / kBlock), 5]
   void *out, *lse_out, *dq, *dk, *dv, *delta;
   int B, n, H, heads;
   MaskSpec spec;
@@ -644,12 +1240,53 @@ cudaError_t run_bwd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(bool backward, const Args& a, cudaStream_t stream) {
+template <int D>
+cudaError_t run_fwd_mma(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.B * a.heads, (a.n + kBlock - 1) / kBlock);
+  flash_fwd_mma_kernel<D, kFwdNB><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const long long*>(a.seed), a.table,
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse_out), a.n, a.H, a.heads, a.spec,
+      a.scale, a.inv_keep, a.threshold, a.use_dropout);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_bwd_mma(const Args& a, cudaStream_t stream) {
+  const int tiles = (a.n + kBlock - 1) / kBlock;
+  const dim3 grid(a.B * a.heads, tiles);
+  flash_bwd_dq_mma_kernel<D, kDqNB><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.o),
+      static_cast<const __nv_bfloat16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const long long*>(a.seed), a.table, static_cast<__nv_bfloat16*>(a.dq),
+      static_cast<float*>(a.delta), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
+      a.use_dropout);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma_kernel<D, kDkdvNB><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const long long*>(a.seed), a.table + 5 * tiles, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
+      a.use_dropout);
+  return cudaGetLastError();
+}
+
+// bf16 on the tensor cores, f32 on the CUDA cores
+template <int D>
+cudaError_t run(bool backward, bool bf16, const Args& a, cudaStream_t stream) {
+  if (bf16) return backward ? run_bwd_mma<D>(a, stream) : run_fwd_mma<D>(a, stream);
+  return backward ? run_bwd<float, D>(a, stream) : run_fwd<float, D>(a, stream);
+}
+
+cudaError_t dispatch(bool backward, bool bf16, const Args& a, cudaStream_t stream) {
+  if (bf16 && a.table == nullptr) return cudaErrorInvalidValue;
   switch (a.H / a.heads) {
-    case 16: return backward ? run_bwd<T, 16>(a, stream) : run_fwd<T, 16>(a, stream);
-    case 32: return backward ? run_bwd<T, 32>(a, stream) : run_fwd<T, 32>(a, stream);
-    case 64: return backward ? run_bwd<T, 64>(a, stream) : run_fwd<T, 64>(a, stream);
+    case 16: return run<16>(backward, bf16, a, stream);
+    case 32: return run<32>(backward, bf16, a, stream);
+    case 64: return run<64>(backward, bf16, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -676,26 +1313,28 @@ bool bad_shape(int B, int n, int H, int heads, int A, int K) {
 }  // namespace
 
 // K3. q, k, v, out [B, n, H] contiguous and 16-byte aligned on the device,
-// of one type: float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse [B, heads, n] float32; seed
-// one int64 on the device (its low 32 bits key the dropout hash; read only
-// when dropout_p > 0 but always a valid pointer). threshold =
-// min(int((1 - dropout_p) * 2^32), 2^32 - 1). Returns the cudaError_t of
-// the launch.
+// of one type: float32 (is_bf16 = 0, CUDA cores) or bfloat16 (is_bf16 = 1,
+// tensor cores); lse [B, heads, n] float32; seed one int64 on the device
+// (its low 32 bits key the dropout hash; read only when dropout_p > 0 but
+// always a valid pointer). threshold = min(int((1 - dropout_p) * 2^32),
+// 2^32 - 1). table: for bf16, the int32 [2, ceil(n / 64), 5] tile schedule
+// of ops/flash_attention.py:tile_table for this mask and n, on the device;
+// unused (may be null) for float32. Returns the cudaError_t of the launch.
 extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, const void* seed,
-                                  void* out, void* lse, int B, int n, int H, int heads, int A,
-                                  int K, int state_index, int own, int has_window, int window,
-                                  float dropout_p, unsigned threshold, int is_bf16, void* stream) {
+                                  const void* table, void* out, void* lse, int B, int n, int H,
+                                  int heads, int A, int K, int state_index, int own, int has_window,
+                                  int window, float dropout_p, unsigned threshold, int is_bf16,
+                                  void* stream) {
   if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
   Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
   a.q = q;
   a.k = k;
   a.v = v;
   a.seed = seed;
+  a.table = static_cast<const int*>(table);
   a.out = out;
   a.lse_out = lse;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(false, a, s) : dispatch<float>(false, a, s));
+  return (int)dispatch(false, is_bf16 != 0, a, static_cast<cudaStream_t>(stream));
 }
 
 // K4. As K3, plus o and dout [B, n, H] (the forward's output and its
@@ -703,10 +1342,11 @@ extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, c
 // and uses delta [B, heads, n] float32 as scratch. Two launches on one
 // stream; returns the first error.
 extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                                  const void* dout, const void* lse, const void* seed, void* dq,
-                                  void* dk, void* dv, void* delta, int B, int n, int H, int heads,
-                                  int A, int K, int state_index, int own, int has_window, int window,
-                                  float dropout_p, unsigned threshold, int is_bf16, void* stream) {
+                                  const void* dout, const void* lse, const void* seed, const void* table,
+                                  void* dq, void* dk, void* dv, void* delta, int B, int n, int H,
+                                  int heads, int A, int K, int state_index, int own, int has_window,
+                                  int window, float dropout_p, unsigned threshold, int is_bf16,
+                                  void* stream) {
   if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
   Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
   a.q = q;
@@ -716,10 +1356,10 @@ extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, c
   a.dout = dout;
   a.lse = lse;
   a.seed = seed;
+  a.table = static_cast<const int*>(table);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
   a.delta = delta;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(true, a, s) : dispatch<float>(true, a, s));
+  return (int)dispatch(true, is_bf16 != 0, a, static_cast<cudaStream_t>(stream));
 }

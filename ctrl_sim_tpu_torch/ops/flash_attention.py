@@ -1,25 +1,39 @@
 """Training flash attention under the multi-agent causal mask (kernels K3
 and K4).
 
-Port of ``ctrl_sim_tpu/ops/flash_attention.py``: multi-head attention of
-the full training sequence (T = steps x agents x token types) with the
-visibility predicate of ``ops/masks.py`` evaluated from token indices,
-never stored, and attention dropout keyed by position through a murmur3
-hash, so the backward regenerates the same keep mask with any tiling. On a
-CUDA tensor the wrappers launch the hand-written Hopper kernels of
+Port of ``ctrl_sim_tpu/ops/flash_attention.py``, whose TPU kernels are
+``_fwd_call`` -> ``pl.pallas_call(_fwd_kernel)`` (K3) and ``_bwd_call`` ->
+``pl.pallas_call(_bwd_kernel)`` (K4): multi-head attention of the full
+training sequence (T = steps x agents x token types) with the visibility
+predicate of ``ops/masks.py`` evaluated from token indices, never stored,
+and attention dropout keyed by position through a murmur3 hash, so the
+backward regenerates the same keep mask with any tiling. On a CUDA tensor
+the wrappers launch the hand-written Hopper kernels of
 ``csrc/flash_attention.cu`` (built by nvcc, bound with ctypes) or raise:
-``flash_mha_fwd`` the forward K3, ``flash_mha_bwd`` the backward K4, and
-``flash_mha`` joins them in a ``torch.autograd.Function``. On a CPU tensor
-they run the plain PyTorch version ``flash_mha_reference``, which the CPU
-tests hold against the JAX kernel and ``chip_smoke.py`` holds the CUDA
-kernels against on the card.
+``flash_mha_fwd`` the forward K3, ``flash_mha_bwd`` the backward K4 (two
+kernels, no atomics), and ``flash_mha`` joins them in a
+``torch.autograd.Function``. On a CPU tensor they run the plain PyTorch
+version ``flash_mha_reference``, which the CPU tests hold against the JAX
+kernel and ``chip_smoke.py`` holds the CUDA kernels against on the card.
+
+bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulators,
+64-row tiles streamed through a ``cp.async`` ring); f32 keeps CUDA-core
+kernels, which hold the 1e-4 agreement that TF32 could not. The bf16
+kernels walk the schedule of ``tile_table``: for each 64-row tile, the
+tiles of the other side with a visible pair, of which the fully visible
+run skips the mask predicate; heaviest tiles first. What bounds them on an
+H100 is not the tensor-core rate (0.044 ms forward, 0.109 ms backward at
+the train step's shape) but per-element work on the CUDA cores: an exp per
+admitted element and pass (K3 one pass, K4 two), the murmur3 keep bit per
+element and pass with dropout on, and the shared-memory reads of the
+streamed tiles; ``csrc/flash_attention.cu`` has the numbers.
 
 Semantics kept from the TPU kernels: scores s * q.k in fp32 with s =
-1/sqrt(d), -1e30 on masked scores (and on keys past T), ``lse = m + log(l)``
-per row from the softmax before dropout, dropout after normalization
-(``keep ? p / (1 - p_drop) : 0``), dq in q's type and dk/dv accumulated in
-fp32 and returned in k's type. The keep bit is bit-identical to the JAX
-``_dropout_keep``.
+1/sqrt(d), -1e30 on masked scores (keys past T take no weight),
+``lse = m + log(l)`` per row from the softmax before dropout, dropout after
+normalization (``keep ? p / (1 - p_drop) : 0``), dq in q's type and dk/dv
+accumulated in fp32 and returned in k's type. The keep bit is
+bit-identical to the JAX ``_dropout_keep``.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ Tensor = torch.Tensor
 _NEG = -1e30  # large-negative instead of -inf: keeps padded rows NaN-free
 _U32 = 0xFFFFFFFF
 HEAD_DIMS = (16, 32, 64)  # head widths the kernels are instantiated for
+TILE = 64  # query and key rows per tile of the bf16 tensor-core kernels
 
 
 class MaskSpec(NamedTuple):
@@ -64,6 +79,45 @@ def block_mask(rows: Tensor, cols: Tensor, seq_len: int, spec: MaskSpec) -> Tens
         window=spec.window,
     )
     return vis & (rows < seq_len) & (cols < seq_len)
+
+
+def _tile_ranges(any_: Tensor, all_: Tensor) -> list[tuple[int, int, int, int, int]]:
+    """Per tile of rows: (tile, begin, full_begin, full_end, end) over the
+    tiles of columns. [begin, end) covers every column tile with a visible
+    pair; [full_begin, full_end) is the first run of fully visible tiles in
+    it (empty if there is none); the rest of [begin, end) is partial."""
+    out = []
+    for r in range(any_.shape[0]):
+        hit = torch.nonzero(any_[r]).flatten().tolist()
+        begin, end = (hit[0], hit[-1] + 1) if hit else (0, 0)
+        full_begin = full_end = next((c for c in range(begin, end) if all_[r, c]), begin)
+        while full_end < end and all_[r, full_end]:
+            full_end += 1
+        out.append((r, begin, full_begin, full_end, end))
+    return out
+
+
+def tile_table(spec: MaskSpec, seq_len: int, tile: int = TILE) -> Tensor:
+    """The tile schedule of the bf16 tensor-core kernels, int32 [2, n, 5]
+    with n = ceil(seq_len / tile): row 0 walks the key tiles of each query
+    tile (the forward and the dq kernel), row 1 the query tiles of each key
+    tile (the dk/dv kernel). Each entry is (tile, begin, full_begin,
+    full_end, end) as ``_tile_ranges`` gives it, and the entries run
+    heaviest first (most tiles to walk), so the longest blocks start first.
+    Computed from ``block_mask`` on the CPU; only partial tiles evaluate
+    the mask in the kernels."""
+    n = -(-seq_len // tile)
+    idx = torch.arange(n * tile)
+    blocks = block_mask(idx[:, None], idx[None, :], seq_len, spec).reshape(n, tile, n, tile)
+    any_, all_ = blocks.any(dim=3).any(dim=1), blocks.all(dim=3).all(dim=1)
+    sides = [sorted(_tile_ranges(a, f), key=lambda e: e[1] - e[4])  # stable: heaviest first
+             for a, f in ((any_, all_), (any_.T, all_.T))]
+    return torch.tensor(sides, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tile_table(spec: MaskSpec, seq_len: int, device: torch.device) -> Tensor:
+    return tile_table(spec, seq_len).to(device)
 
 
 def keep_threshold(keep_prob: float) -> int:
@@ -167,10 +221,10 @@ def _kernels():
     tail = [ctypes.c_float, ctypes.c_uint, i32, ptr]
     fwd = lib.ctrl_sim_flash_fwd
     fwd.restype = i32
-    fwd.argtypes = [ptr] * 6 + shape + tail  # q, k, v, seed, out, lse
+    fwd.argtypes = [ptr] * 7 + shape + tail  # q, k, v, seed, table, out, lse
     bwd = lib.ctrl_sim_flash_bwd
     bwd.restype = i32
-    bwd.argtypes = [ptr] * 11 + shape + tail  # q, k, v, o, do, lse, seed, dq, dk, dv, delta
+    bwd.argtypes = [ptr] * 12 + shape + tail  # q, k, v, o, do, lse, seed, table, dq, dk, dv, delta
     return fwd, bwd
 
 
@@ -183,6 +237,14 @@ def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, dropout_p: float) ->
         float(dropout_p), keep_threshold(1.0 - dropout_p), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     ]
+
+
+def _table_ptr(q: Tensor, spec: MaskSpec):
+    """The tile schedule of the bf16 kernels on q's card (None for f32,
+    whose kernels find their ranges themselves)."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return _device_tile_table(spec, q.shape[1], q.device).data_ptr()
 
 
 def _require_cuda(*tensors: Tensor) -> None:
@@ -212,8 +274,8 @@ def flash_mha_fwd(
     lse = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
     fwd, _ = _kernels()
     with torch.cuda.device(q.device):
-        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), out.data_ptr(),
-                  lse.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec),
+                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError_t {err}")
     flash_mha_fwd.launches += 1
@@ -248,8 +310,8 @@ def flash_mha_bwd(
     _, bwd = _kernels()
     with torch.cuda.device(q.device):
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                  lse.data_ptr(), seed_t.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  delta.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+                  lse.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError_t {err}")
     flash_mha_bwd.launches += 1

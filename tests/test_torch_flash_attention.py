@@ -113,3 +113,45 @@ def test_wrapper_rejects(shape, heads, dtype, error):
     x = torch.zeros(shape, dtype=dtype)
     with pytest.raises(error):
         tfa.flash_mha(x, x, x, tfa.MaskSpec(3, 3, 0, False, None), heads)
+
+
+@pytest.mark.parametrize("tile", [tfa.TILE, 16])
+@pytest.mark.parametrize(
+    "steps,agents,types,own,window",
+    [  # the layouts of tests/test_torch_kernels.py's kernel cases, and the train step's
+        (8, 24, 3, False, None),
+        (5, 23, 3, False, None),
+        (6, 4, 3, True, None),
+        (7, 3, 3, False, 3),
+        (6, 4, 2, False, None),
+        (32, 24, 3, False, None),
+    ],
+)
+def test_tile_table_matches_block_mask(tile, steps, agents, types, own, window):
+    """The bf16 kernels' tile schedule against the mask: every tile with a
+    visible pair is walked, no other, and every tile it marks fully visible
+    is fully visible (the kernels skip the predicate there), on both sides:
+    the key tiles of each query tile and the query tiles of each key tile."""
+    T = steps * agents * types
+    spec = tfa.MaskSpec(agents, types, 0, own, window)
+    table = tfa.tile_table(spec, T, tile)
+    n = -(-T // tile)
+    assert table.shape == (2, n, 5) and table.dtype == torch.int32
+    idx = torch.arange(n * tile)
+    blocks = tfa.block_mask(idx[:, None], idx[None, :], T, spec).reshape(n, tile, n, tile)
+    seen, full = blocks.any(dim=3).any(dim=1), blocks.all(dim=3).all(dim=1)
+    for side, (s, f) in enumerate(((seen, full), (seen.T, full.T))):
+        entries = table[side].tolist()
+        assert sorted(e[0] for e in entries) == list(range(n))
+        work = [e[4] - e[1] for e in entries]
+        assert work == sorted(work, reverse=True)  # heaviest first
+        for own_tile, begin, full_begin, full_end, end in entries:
+            walked = set(range(begin, end))
+            assert walked == set(torch.nonzero(s[own_tile]).flatten().tolist())
+            assert begin <= full_begin <= full_end <= end
+            assert all(f[own_tile, c] for c in range(full_begin, full_end))
+    if window is None and not own and T >= tile:  # the default mask: earlier timesteps are fully visible
+        q_tile = T // tile - 1  # the last query tile with no row past T
+        first_own_step = (q_tile * tile) // (agents * types) * (agents * types)
+        _, begin, full_begin, full_end, _ = next(e for e in table[0].tolist() if e[0] == q_tile)
+        assert begin == full_begin == 0 and full_end == first_own_step // tile

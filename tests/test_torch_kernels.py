@@ -160,6 +160,37 @@ def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
     ],
 )
 def test_flash_attention_kernels_match_plain(cuda, dropout_p, dtype, atol, gtol, B, steps, A, K, heads, d, own, window):
+    _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_flash_attention_bf16_at_train_length(cuda, dropout_p):
+    """The bf16 tensor-core kernels at the train step's T = 32 x 24 x 3 =
+    2304 (36 tiles of 64, partial tiles on every query tile's diagonal)."""
+    _check_flash(cuda, 2, 32, 24, 3, 8, 32, False, None, torch.bfloat16, dropout_p, 2e-2, 5e-2)
+
+
+def test_flash_attention_dispatches_by_dtype(cuda):
+    """f32 runs the CUDA-core kernels and bf16 the tensor-core ones: both
+    launch through the same wrappers, and agree within bf16 rounding."""
+    spec = flash_attention.MaskSpec(24, 3, 0, False, None)
+    q, k, v, do = _flash_inputs(cuda, 2, 4, 24, 3, 8, 32, torch.float32, 11)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = [t.to(dtype) for t in (q, k, v, do)]
+        f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches
+        out, lse = flash_attention.flash_mha_fwd(*x[:3], spec, 8, 0.1, torch.tensor([3], device=cuda))
+        grads = flash_attention.flash_mha_bwd(*x[:3], out, x[3], lse, spec, 8, 0.1, torch.tensor([3], device=cuda))
+        assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
+        assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
+        outs[dtype] = (out.float(), lse, *(g.float() for g in grads))
+    torch.cuda.synchronize()
+    for a, b in zip(outs[torch.float32], outs[torch.bfloat16]):
+        assert torch.isfinite(b).all()
+        assert (a - b).abs().max().item() <= 5e-2 * max(1.0, a.abs().max().item())
+
+
+def _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol):
     spec = flash_attention.MaskSpec(A, K, 0, own, window)
     q, k, v, do = _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, steps * A + d)
     seed = torch.tensor([1234567], device=cuda)
