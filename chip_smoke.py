@@ -11,15 +11,16 @@ code is 0 only when every phase passed:
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one nvcc per source, all started together), with
    ptxas's registers and spills per kernel, and the HMMA (tensor-core)
-   instructions per kernel in the library's SASS (``cuobjdump``): the bf16
-   K3/K4 kernels must have some;
+   instructions per kernel in the SASS of each library (``cuobjdump``):
+   every bf16 K1, K2, K3 and K4 kernel must have some;
 3. kernels K1 (decode attention) and K2 (decode attention over the int8
    cache) against their plain PyTorch versions on the card: the rollout's
    shapes (256 lanes, Q = 32 and 16 queries, N = 1536 keys, H = 256 = 8
    heads x 32) in bf16 and f32, a narrow case (H = 64 = 4 x 16, Q = 12) and
    a mask with fully masked rows; tolerance 2e-2 absolute in bf16, 1e-4 in
    f32; and ``quantize_rows`` on the card equal to its CPU result. Times
-   (CUDA events, median of 30 launches after warm-up) of each kernel, its
+   (CUDA events around a run of 10 launches, median of 30 runs after
+   warm-up; the plain versions one launch a run) of each kernel, its
    plain version and one library call, F.scaled_dot_product_attention,
    kept as a yardstick only (for K2 over the K/V dequantized to q's dtype
    beforehand: not the same function, and it reads twice K2's bytes);
@@ -84,9 +85,6 @@ import time
 from pathlib import Path
 
 SEED = 0
-LANES = 256  # one bench chunk of scenes
-AGENTS, LANE_ROADS, ARENA = 12, 4, 300.0  # bench.py's scene recipe
-SLOTS = 16
 TRAIN_STEPS = 10
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet, dense rates below too)
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 outside them
@@ -94,8 +92,15 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # of max |grad|
 IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators, 64-row tiles, cp.async "
                   "ring, mask only on partial tiles; f32: CUDA cores")
-# the bf16 K3/K4 kernels, which must run on the tensor cores (HMMA in their SASS)
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+DECODE_IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators; a warp per (lane, head, "
+                         "16 or 32 query rows) streams all its keys in 32-key chunks through its own cp.async "
+                         "ring of swizzled tiles, 4 heads of a lane a block; f32: CUDA cores")
+# the bf16 kernels of each source, which must run on the tensor cores (HMMA in their SASS)
+MMA_KERNELS = {
+    "decode_attention.cu": ("decode_attention_mma_kernel",),
+    "decode_attention_q8.cu": ("decode_attention_q8_mma_kernel",),
+    "flash_attention.cu": ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"),
+}
 # the executed reference at the deployed shape (tools/make_model_goldens.py --full)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "reference_model_full.npz"
 GOLDEN_CONFIG = {
@@ -111,7 +116,7 @@ def _phase(name: str, t0: float, detail: str = "") -> None:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``flash_fwd_mma_kernel<32>`` (or ``flash_fwd_kernel<float, 32>``)
+    """``flash_fwd_mma_kernel<32, 4>`` (or ``flash_fwd_kernel<float, 32>``)
     from a kernel's mangled name: the last of its length-prefixed names
     (after the namespace's), then its template arguments."""
     if not mangled.startswith("_ZN"):
@@ -121,10 +126,10 @@ def _kernel_label(mangled: str) -> str:
         start = i + m.end()
         i = start + int(m.group())
         name = mangled[start:i]
-    t = re.match(r"I(f)?(?:13__nv_bfloat16)?Li(\d+)E", mangled[i:])
+    t = re.match(r"I(f)?(?:13__nv_bfloat16)?((?:Li\d+E)+)", mangled[i:])
     if not t:
         return name
-    return f"{name}<{'float, ' if t.group(1) else ''}{t.group(2)}>"
+    return f"{name}<{'float, ' if t.group(1) else ''}{', '.join(re.findall(r'Li(\d+)E', t.group(2)))}>"
 
 
 def _ptxas_lines(report: str):
@@ -154,7 +159,11 @@ def _hmma_counts(library) -> dict[str, int]:
     return counts
 
 
-def _median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+def _median_ms(fn, reps: int = 30, warmup: int = 5, batch: int = 10) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``batch`` calls
+    in a row, the median of ``reps`` such runs. A run of calls keeps the
+    host's time to enqueue one call (tens of microseconds in a wrapper) out
+    of a kernel's time, as long as it is shorter than the kernel."""
     import torch
 
     for _ in range(warmup):
@@ -164,10 +173,11 @@ def _median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -216,7 +226,7 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
         "shape": f"B={B} Q={Q} N={N} H={H}/{heads} {dtype}" + (" int8 K/V" if int8 else ""),
         "max_abs_err": err,
         "ms": _median_ms(lambda: kernel(*args)),
-        "plain_ms": _median_ms(lambda: plain(*args)),
+        "plain_ms": _median_ms(lambda: plain(*args), batch=1),
         "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -229,6 +239,7 @@ def _quantize_rows_on_card(gen) -> str:
     import torch
 
     from ctrl_sim_tpu_torch.ops import attention
+    from ctrl_sim_tpu_torch.rollout.setup import LANES
 
     x = torch.randn((LANES, 1536, 256), generator=gen, device="cuda") * 3
     for dtype in (torch.float32, torch.bfloat16):
@@ -353,10 +364,10 @@ def _flash_main(gen):
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     with torch.no_grad():
         res["plain_fwd_ms"] = _median_ms(
-            lambda: fa.flash_mha_reference(q, k, v, spec, heads, 0.1, seed), reps=10, warmup=2)
+            lambda: fa.flash_mha_reference(q, k, v, spec, heads, 0.1, seed), reps=10, warmup=2, batch=1)
     ref_out, _ = fa.flash_mha_reference(*leaves, spec, heads, 0.1, seed)
     res["plain_bwd_ms"] = _median_ms(
-        lambda: torch.autograd.grad(ref_out, leaves, do, retain_graph=True), reps=10, warmup=2)
+        lambda: torch.autograd.grad(ref_out, leaves, do, retain_graph=True), reps=10, warmup=2, batch=1)
     del ref_out, leaves
     torch.cuda.empty_cache()
     return res
@@ -602,14 +613,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from ctrl_sim_tpu_torch.config import load_config
-        from ctrl_sim_tpu_torch.data import stack_scenarios, synthetic_scenario, to_torch
-        from ctrl_sim_tpu_torch.data.transforms import get_tilt_logits
-        from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
         from ctrl_sim_tpu_torch.ops import attention, build
         from ctrl_sim_tpu_torch.ops import flash_attention as fa
         from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
-        from ctrl_sim_tpu_torch.params import init_params
+        from ctrl_sim_tpu_torch.rollout.setup import LANES, SLOTS, full_width_rollout
         from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -632,13 +639,19 @@ def main() -> int:
         for kernel, line in _ptxas_lines(report):
             print(f"  {source}: {kernel}: {line}")
     build_s = time.perf_counter() - t0
-    hmma = _hmma_counts(build.library_path("flash_attention.cu"))
-    for kernel, count in sorted(hmma.items()):
-        print(f"  flash_attention.cu: {kernel}: {count} HMMA")
-    bare = [f"{k}<{d}>" for k in MMA_KERNELS for d in fa.HEAD_DIMS if not hmma.get(f"{k}<{d}>")]
+    bare = []
+    for source, names in MMA_KERNELS.items():
+        hmma = _hmma_counts(build.library_path(source))
+        for kernel, count in sorted(hmma.items()):
+            print(f"  {source}: {kernel}: {count} HMMA")
+        for name in names:
+            for d in fa.HEAD_DIMS:  # every instance of the head width (and of the row tiles)
+                counts = [c for k, c in hmma.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
+                if not counts or not all(counts):
+                    bare.append(f"{name}<{d}>")
     if bare:
-        raise AssertionError(f"bf16 K3/K4 kernels without tensor-core (HMMA) instructions: {bare}")
-    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K3/K4 kernel")
+        raise AssertionError(f"bf16 kernels without tensor-core (HMMA) instructions: {bare}")
+    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K1-K4 kernel")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -712,27 +725,15 @@ def main() -> int:
     _phase("small-agreement", t0, detail)
 
     t0 = time.perf_counter()
-    cfg = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS})
-    scenes = stack_scenarios(
-        [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
-         for s in range(LANES)], cfg)
-    sc = to_torch(scenes, "cuda")
-    model = CtRLSim(cfg)
-    init_params(model, torch.Generator().manual_seed(SEED))
-    cfg_q8 = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS,
-                          "model.kv_cache_dtype": "int8"})
-    cfg_off = load_config({"model.cross_score_dtype": "bfloat16", "eval.agent_slots": SLOTS,
-                           "sim.resolve_contacts": False})
-    model_q8 = CtRLSim(cfg_q8)
-    model_q8.load_state_dict(model.state_dict())  # the same weights
-    controlled = sc.moving & sc.agent_valid
-    tilt = get_tilt_logits(0.0, 0.0, 0.0, cfg.waymo, device="cuda")
-    _phase("setup", t0, f"{LANES} scenes, {sum(p.numel() for p in model.parameters())} params, contacts on")
+    cfgs, models, sc, controlled, tilt = full_width_rollout(SEED)
+    params = sum(p.numel() for p in models["bf16"].parameters())
+    _phase("setup", t0, f"{LANES} scenes, {params} params, contacts on")
 
     rollout_s, rollout_launches = {}, {}
-    for phase, c, m, kernel in (("rollout", cfg, model, attention.cached_decode_attention),
-                                ("rollout-int8", cfg_q8, model_q8, attention.cached_decode_attention_q8),
-                                ("rollout-contacts-off", cfg_off, model, attention.cached_decode_attention)):
+    for phase, case, kernel in (("rollout", "bf16", attention.cached_decode_attention),
+                                ("rollout-int8", "int8", attention.cached_decode_attention_q8),
+                                ("rollout-contacts-off", "contacts-off", attention.cached_decode_attention)):
+        c, m = cfgs[case], models[case]
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         attention.cached_decode_attention.launches = 0
@@ -752,7 +753,7 @@ def main() -> int:
         for name, x in out._asdict().items():
             if not torch.isfinite(x.float()).all():
                 raise AssertionError(f"{phase}: non-finite rollout output {name}")
-        if out.position.shape != (steps + 1, LANES, scenes.traj_position.shape[1], 2):
+        if out.position.shape != (steps + 1, LANES, sc.traj_position.shape[1], 2):
             raise AssertionError(f"{phase}: unexpected position shape {tuple(out.position.shape)}")
         rollout_s[phase], rollout_launches[phase] = elapsed, launched
         contacts = "on" if c.sim.resolve_contacts else "off"
@@ -761,7 +762,7 @@ def main() -> int:
                f"benchmark); {kernel.__name__} launches {launched}")
         del out
     k1_launches, k2_launches = rollout_launches["rollout"], rollout_launches["rollout-int8"]
-    del sc, model, model_q8
+    del sc, models
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -793,6 +794,7 @@ def main() -> int:
             "library_ms": mean("library_ms"),
             "build_s": build_s,
             "rollout_s": rollout_s["rollout"],
+            "implementation": DECODE_IMPLEMENTATION,
         },
         {
             "name": "cached_decode_attention_q8",
@@ -810,6 +812,8 @@ def main() -> int:
             "library": "F.scaled_dot_product_attention over K/V dequantized to bf16 beforehand (not timed); "
                        "not the same function, it reads twice K2's bytes",
             "rollout_s": rollout_s["rollout-int8"],
+            "implementation": DECODE_IMPLEMENTATION + "; int8 chunks widened to bf16 in shared memory, "
+                              "k_scale on the scores, v_scale on the weights before their bf16 rounding",
         },
         {
             "name": "flash_mha_fwd",

@@ -16,14 +16,19 @@
 // N = 32 steps * 3 token types * 16 slots = 1536 keys, H = 256, bf16) that is
 // 2 * B * N * H * 2 = 402,653,184 bytes per launch (0.12 ms at 3.35 TB/s),
 // against 4 * B * Q * N * H = 12.9 GFLOP (Q = 32), 0.013 ms at the bf16
-// tensor-core rate: the work is memory-bound. (This version runs the
-// products on CUDA cores, where they alone would take 0.19 ms at fp32 peak.)
+// tensor-core rate: the work is memory-bound.
 //
-// Design (simple and right first; TMA and wgmma come later):
+// bf16: tensor cores (decode_attention_mma_kernel<D, MT>), the body in
+// decode_mma.cuh, shared with K2: mma.sync m16n8k16 over K/V chunks that
+// each warp streams through a cp.async ring of bf16 shared-memory tiles;
+// its design notes are there.
+//
+// f32: CUDA cores (decode_attention_kernel<D>), kept for the 1e-4 agreement
+// of the f32 path, which TF32 tensor cores cannot hold:
 // - one block per (lane b, head h, tile of 32 query rows); 4 warps, each warp
 //   owns 8 query rows, so K/V of one (b, h) are read once per 32 queries;
-// - K/V tiles of 32 keys x d are staged through shared memory as fp32; the
-//   next tile's K, V (16-byte loads) and mask bytes are loaded into registers
+// - K/V tiles of 32 keys x d are staged through shared memory; the next
+//   tile's K, V (16-byte loads) and mask bytes are loaded into registers
 //   while the current tile is computed, so device-memory latency overlaps
 //   the arithmetic (waiting for each tile makes the kernel latency-bound);
 // - each lane owns one key of the tile for the scores, and output dims
@@ -37,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -45,25 +52,6 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kQTile = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKTile = 32;                     // keys per tile: one per lane
 constexpr float kMaskNeg = -1e30f;             // exp2 of (x - 1e30 - m) is 0
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
-
-// 16 bytes of T, widened to fp32 and stored at dst (16-byte aligned).
-__device__ __forceinline__ void store_vec(const uint4& raw, float* dst, float) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
-}
-__device__ __forceinline__ void store_vec(const uint4& raw, float* dst, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; i += 2) {
-    const float2 a = __bfloat1622float2(h[i]);
-    const float2 b = __bfloat1622float2(h[i + 1]);
-    *reinterpret_cast<float4*>(dst + 2 * i) = make_float4(a.x, a.y, b.x, b.y);
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -77,14 +65,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int8_t* __restrict__ mask,
-                        T* __restrict__ out, int Q, int N, int H, int num_heads) {
+decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int8_t* __restrict__ mask,
+                        float* __restrict__ out, int Q, int N, int H, int num_heads) {
   constexpr int DK = D + 4;  // padded K rows: float4 reads across lanes hit distinct banks
   constexpr int DCH = (D + 31) / 32;
-  constexpr int kElems = 16 / sizeof(T);       // elements per 16-byte load
+  constexpr int kElems = 4;                    // elements per 16-byte load
   constexpr int kVecRow = D / kElems;          // 16-byte loads per key row
   constexpr int kVecTile = kKTile * kVecRow;   // per tile, for K and for V
   constexpr int kVecThread = (kVecTile + kThreads - 1) / kThreads;
@@ -101,13 +89,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = warp * kRowsPerWarp;
 
   const size_t head = (size_t)h * D;
-  const T* qb = q + (size_t)b * Q * H + head;
-  const T* kb = k + (size_t)b * N * H + head;
-  const T* vb = v + (size_t)b * N * H + head;
+  const float* qb = q + (size_t)b * Q * H + head;
+  const float* kb = k + (size_t)b * N * H + head;
+  const float* vb = v + (size_t)b * N * H + head;
+  const int ldm = N + (N & 1);  // the mask's row stride
 
   for (int i = threadIdx.x; i < kQTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    qs[r][c] = (q0 + r < Q) ? to_float(qb[(size_t)(q0 + r) * H + c]) : 0.f;
+    qs[r][c] = (q0 + r < Q) ? qb[(size_t)(q0 + r) * H + c] : 0.f;
   }
 
   // registers holding the next tile: K/V as raw 16-byte loads, and this
@@ -131,7 +120,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qi = q0 + row0 + r;
-      mreg[r] = n >= N ? int8_t(-1) : (qi >= Q ? int8_t(1) : (mask[(size_t)qi * N + n] != 0 ? int8_t(1) : int8_t(0)));
+      mreg[r] = n >= N ? int8_t(-1) : (qi >= Q ? int8_t(1) : (mask[(size_t)qi * ldm + n] != 0 ? int8_t(1) : int8_t(0)));
     }
   };
 
@@ -152,8 +141,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = threadIdx.x + j * kThreads;
       if (i < kVecTile) {
         const int r = i / kVecRow, c = (i % kVecRow) * kElems;
-        store_vec(kreg[j], &ks[r][c], T());
-        store_vec(vreg[j], &vs[r][c], T());
+        *reinterpret_cast<uint4*>(&ks[r][c]) = kreg[j];
+        *reinterpret_cast<uint4*>(&vs[r][c]) = vreg[j];
       }
     }
     int8_t mcur[kRowsPerWarp];
@@ -218,54 +207,64 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = warp_sum(l[r]);
     const int qi = q0 + row0 + r;
     if (qi >= Q) continue;
-    T* ob = out + ((size_t)b * Q + qi) * H + head;
+    float* ob = out + ((size_t)b * Q + qi) * H + head;
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int o = lane + 32 * c;
-      if (o < D) store(acc[r][c] / denom, ob + o);
+      if (o < D) ob[o] = acc[r][c] / denom;
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   int B, int Q, int N, int H, int num_heads, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       int B, int Q, int N, int H, int num_heads, cudaStream_t stream) {
   const dim3 grid(B * num_heads, (Q + kQTile - 1) / kQTile);
-  const int d = H / num_heads;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const int8_t* mp = static_cast<const int8_t*>(mask);
-  T* op = static_cast<T*>(out);
-  switch (d) {
-    case 16:
-      decode_attention_kernel<T, 16><<<grid, kThreads, 0, stream>>>(qp, kp, vp, mp, op, Q, N, H, num_heads);
-      break;
-    case 32:
-      decode_attention_kernel<T, 32><<<grid, kThreads, 0, stream>>>(qp, kp, vp, mp, op, Q, N, H, num_heads);
-      break;
-    case 64:
-      decode_attention_kernel<T, 64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, mp, op, Q, N, H, num_heads);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  decode_attention_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int8_t*>(mask), static_cast<float*>(out), Q, N, H, num_heads);
   return cudaGetLastError();
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(kDecThreads, decode_min_blocks(D, false))
+decode_attention_mma_kernel(const DecodeArgs a) {
+  decode_attention_mma<D, MT, false>(a);
+}
+
+// MT = 2 m16 row tiles a block when Q > 16
+template <int D>
+cudaError_t launch_bf16(const DecodeArgs& a, int B, cudaStream_t stream) {
+  return a.Q > 16 ? launch_decode_mma<D, 2, false>(decode_attention_mma_kernel<D, 2>, a, B, stream)
+                  : launch_decode_mma<D, 1, false>(decode_attention_mma_kernel<D, 1>, a, B, stream);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+                   int Q, int N, int H, int num_heads, int is_bf16, cudaStream_t stream) {
+  if (!is_bf16) return launch_f32<D>(q, k, v, mask, out, B, Q, N, H, num_heads, stream);
+  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, nullptr, nullptr,
+                     static_cast<const int8_t*>(mask), static_cast<__nv_bfloat16*>(out), Q, N, H, num_heads};
+  return launch_bf16<D>(a, B, stream);
 }
 
 }  // namespace
 
-// q [B, Q, H] (pre-scaled), k/v [B, N, H], mask [Q, N] int8, out [B, Q, H];
-// all contiguous on the device, of one type: float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); k and v 16-byte aligned. Returns the cudaError_t
-// of the launch.
+// q [B, Q, H] (pre-scaled), k/v [B, N, H], out [B, Q, H], all contiguous on
+// the device and of one type: float32 (is_bf16 = 0, CUDA cores) or
+// bfloat16 (is_bf16 = 1, tensor cores); k and v 16-byte aligned; mask
+// [Q, N + N % 2] int8 (rows padded to an even length). Returns the
+// cudaError_t of the launch.
 extern "C" int ctrl_sim_decode_attention(const void* q, const void* k, const void* v,
                                          const void* mask, void* out, int B, int Q, int N,
                                          int H, int num_heads, int is_bf16, void* stream) {
   if (B <= 0 || Q <= 0 || N <= 0 || num_heads <= 0 || H % num_heads != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(q, k, v, mask, out, B, Q, N, H, num_heads, s)
-                                  : launch<float>(q, k, v, mask, out, B, Q, N, H, num_heads, s);
-  return (int)err;
+  switch (H / num_heads) {
+    case 16: return (int)launch<16>(q, k, v, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    case 32: return (int)launch<32>(q, k, v, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    case 64: return (int)launch<64>(q, k, v, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

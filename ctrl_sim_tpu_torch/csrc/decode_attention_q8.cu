@@ -19,20 +19,27 @@
 // the products run on the int8 values widened to fp32 (exact: |x| <= 127).
 //
 // Rounding: the TPU body casts the weights e * v_scale to q's dtype before
-// the product with V, with e taken against the row's global max. This kernel
-// holds e against a running max (online softmax), so its rounding points
-// would differ anyway: it keeps the weights in fp32, and the tolerance
-// against the plain version (which rounds as the TPU does) covers the
-// difference (2e-2 absolute in bf16; in f32 the cast is a no-op).
+// the product with V, with e taken against the row's global max. The bf16
+// kernel rounds e * v_scale to bf16 at the same point, with e taken against
+// a running max (online softmax), a rounding of the same relative size; the
+// f32 kernel keeps the weights in fp32, where the cast is a no-op.
 //
 // What bounds it: one read of the int8 K and V and their fp32 scales. At the
 // bench shape (B = 256 lanes, N = 32 steps * 3 token types * 16 slots = 1536
 // keys, H = 256) that is 2 * B * N * H = 201,326,592 bytes plus 3,145,728
 // bytes of scales per launch (0.061 ms at 3.35 TB/s), half of K1's bf16
-// cache, against 4 * B * Q * N * H = 12.9 GFLOP (Q = 32): memory-bound. The
-// products run on CUDA cores here (int8 mma is later work).
+// cache, against 4 * B * Q * N * H = 12.9 GFLOP (Q = 32): memory-bound.
 //
-// Design (K1 v2's, with int8 tiles):
+// bf16: tensor cores (decode_attention_q8_mma_kernel<D, MT>), the body in
+// decode_mma.cuh, shared with K1: each warp streams int8 K/V chunks and
+// their scales through a cp.async ring, widens each landed chunk to bf16 in
+// shared memory (exact), and runs K1's mma.sync products on it; k_scale
+// multiplies each fp32 score column, v_scale the weights before they are
+// rounded to bf16. No int8 mma: it would need q quantized to int8, which is
+// not the function the TPU kernel computes.
+//
+// f32: CUDA cores (decode_attention_q8_kernel<D>), K1's f32 design with
+// int8 tiles:
 // - one block per (lane b, head h, tile of 32 query rows); 4 warps, each warp
 //   owns 8 query rows, so K/V of one (b, h) are read once per 32 queries;
 // - K/V tiles of 32 keys x d are loaded 16 int8 values a thread, widened to
@@ -52,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -61,11 +70,6 @@ constexpr int kQTile = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKTile = 32;                     // keys per tile: one per lane
 constexpr int kElems = 16;                     // int8 values per 16-byte load
 constexpr float kMaskNeg = -1e30f;             // exp2 of (x - 1e30 - m) is 0
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) { *p = __float2bfloat16(x); }
 
 // byte j of w, sign-extended, as fp32
 __device__ __forceinline__ float byte_to_float(uint32_t w, int j) {
@@ -94,12 +98,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+decode_attention_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
                            const int8_t* __restrict__ v, const float* __restrict__ k_scale,
                            const float* __restrict__ v_scale, const int8_t* __restrict__ mask,
-                           T* __restrict__ out, int Q, int N, int H, int num_heads) {
+                           float* __restrict__ out, int Q, int N, int H, int num_heads) {
   constexpr int DK = D + 4;  // padded K rows: float4 reads across lanes hit distinct banks
   constexpr int DCH = (D + 31) / 32;
   constexpr int kVecRow = D / kElems;          // 16-byte loads per key row
@@ -118,7 +122,8 @@ decode_attention_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k
   const int row0 = warp * kRowsPerWarp;
 
   const size_t head = (size_t)h * D;
-  const T* qb = q + (size_t)b * Q * H + head;
+  const float* qb = q + (size_t)b * Q * H + head;
+  const int ldm = N + (N & 1);  // the mask's row stride
   const int8_t* kb = k + (size_t)b * N * H + head;
   const int8_t* vb = v + (size_t)b * N * H + head;
   const float* ksb = k_scale + (size_t)b * N;
@@ -126,7 +131,7 @@ decode_attention_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k
 
   for (int i = threadIdx.x; i < kQTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    qs[r][c] = (q0 + r < Q) ? to_float(qb[(size_t)(q0 + r) * H + c]) : 0.f;
+    qs[r][c] = (q0 + r < Q) ? qb[(size_t)(q0 + r) * H + c] : 0.f;
   }
 
   // registers holding the next tile: K/V as raw 16-byte loads, this lane's
@@ -154,7 +159,7 @@ decode_attention_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qi = q0 + row0 + r;
-      mreg[r] = n >= N ? int8_t(-1) : (qi >= Q ? int8_t(1) : (mask[(size_t)qi * N + n] != 0 ? int8_t(1) : int8_t(0)));
+      mreg[r] = n >= N ? int8_t(-1) : (qi >= Q ? int8_t(1) : (mask[(size_t)qi * ldm + n] != 0 ? int8_t(1) : int8_t(0)));
     }
   };
 
@@ -243,50 +248,58 @@ decode_attention_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k
     const float denom = warp_sum(l[r]);
     const int qi = q0 + row0 + r;
     if (qi >= Q) continue;
-    T* ob = out + ((size_t)b * Q + qi) * H + head;
+    float* ob = out + ((size_t)b * Q + qi) * H + head;
 #pragma unroll
     for (int c = 0; c < DCH; ++c) {
       const int o = lane + 32 * c;
-      if (o < D) store(acc[r][c] / denom, ob + o);
+      if (o < D) ob[o] = acc[r][c] / denom;
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* k_scale,
-                   const void* v_scale, const void* mask, void* out, int B, int Q, int N, int H,
-                   int num_heads, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* k_scale,
+                       const void* v_scale, const void* mask, void* out, int B, int Q, int N, int H,
+                       int num_heads, cudaStream_t stream) {
   const dim3 grid(B * num_heads, (Q + kQTile - 1) / kQTile);
-  const int d = H / num_heads;
-  const T* qp = static_cast<const T*>(q);
-  const int8_t* kp = static_cast<const int8_t*>(k);
-  const int8_t* vp = static_cast<const int8_t*>(v);
-  const float* ksp = static_cast<const float*>(k_scale);
-  const float* vsp = static_cast<const float*>(v_scale);
-  const int8_t* mp = static_cast<const int8_t*>(mask);
-  T* op = static_cast<T*>(out);
-  switch (d) {
-    case 16:
-      decode_attention_q8_kernel<T, 16><<<grid, kThreads, 0, stream>>>(qp, kp, vp, ksp, vsp, mp, op, Q, N, H, num_heads);
-      break;
-    case 32:
-      decode_attention_q8_kernel<T, 32><<<grid, kThreads, 0, stream>>>(qp, kp, vp, ksp, vsp, mp, op, Q, N, H, num_heads);
-      break;
-    case 64:
-      decode_attention_q8_kernel<T, 64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, ksp, vsp, mp, op, Q, N, H, num_heads);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  decode_attention_q8_kernel<D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int8_t*>(mask), static_cast<float*>(out), Q, N, H, num_heads);
   return cudaGetLastError();
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(kDecThreads, decode_min_blocks(D, true))
+decode_attention_q8_mma_kernel(const DecodeArgs a) {
+  decode_attention_mma<D, MT, true>(a);
+}
+
+// MT = 2 m16 row tiles a block when Q > 16
+template <int D>
+cudaError_t launch_bf16(const DecodeArgs& a, int B, cudaStream_t stream) {
+  return a.Q > 16 ? launch_decode_mma<D, 2, true>(decode_attention_q8_mma_kernel<D, 2>, a, B, stream)
+                  : launch_decode_mma<D, 1, true>(decode_attention_q8_mma_kernel<D, 1>, a, B, stream);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+                   const void* mask, void* out, int B, int Q, int N, int H, int num_heads, int is_bf16,
+                   cudaStream_t stream) {
+  if (!is_bf16) return launch_f32<D>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, stream);
+  const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
+                     static_cast<const float*>(v_scale), static_cast<const int8_t*>(mask),
+                     static_cast<__nv_bfloat16*>(out), Q, N, H, num_heads};
+  return launch_bf16<D>(a, B, stream);
 }
 
 }  // namespace
 
 // q [B, Q, H] (pre-scaled) and out [B, Q, H] of one type: float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); k/v [B, N, H] int8, 16-byte
-// aligned; k_scale/v_scale [B, N] float32; mask [Q, N] int8; all contiguous
-// on the device. Returns the cudaError_t of the launch.
+// (is_bf16 = 0, CUDA cores) or bfloat16 (is_bf16 = 1, tensor cores); k/v
+// [B, N, H] int8, 16-byte aligned; k_scale/v_scale [B, N] float32; mask
+// [Q, N + N % 2] int8 (rows padded to an even length); all contiguous on the
+// device. Returns the cudaError_t of the launch.
 extern "C" int ctrl_sim_decode_attention_q8(const void* q, const void* k, const void* v,
                                             const void* k_scale, const void* v_scale,
                                             const void* mask, void* out, int B, int Q, int N,
@@ -294,8 +307,10 @@ extern "C" int ctrl_sim_decode_attention_q8(const void* q, const void* k, const 
   if (B <= 0 || Q <= 0 || N <= 0 || num_heads <= 0 || H % num_heads != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, s)
-              : launch<float>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, s);
-  return (int)err;
+  switch (H / num_heads) {
+    case 16: return (int)launch<16>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    case 32: return (int)launch<32>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    case 64: return (int)launch<64>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

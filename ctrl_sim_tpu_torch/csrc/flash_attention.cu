@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -656,80 +658,6 @@ struct TileRange {
   __device__ __forceinline__ bool partial(int t) const { return t < full_begin || t >= full_end; }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from src to shared dst; zeros where !pred (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a b for a 16x16 bf16 A fragment and a 16x8 bf16 B fragment (b0, b1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// The A fragments of rows [r0, r0 + 16) x D of a row-major bf16 matrix with
-// row stride H, straight from device memory; rows >= n are zeros. Thread
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t + 1
-// and 2t + 8, 2t + 9 of each 16-wide step.
-template <int KS>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const __nv_bfloat16* __restrict__ x,
-                                             int r0, int n, int H, int g, int t) {
-  const int ra = r0 + g, rb = ra + 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int c = 16 * ks + 2 * t;
-    a[ks][0] = ra < n ? ldg_u32(x + (size_t)ra * H + c) : 0u;
-    a[ks][1] = rb < n ? ldg_u32(x + (size_t)rb * H + c) : 0u;
-    a[ks][2] = ra < n ? ldg_u32(x + (size_t)ra * H + c + 8) : 0u;
-    a[ks][3] = rb < n ? ldg_u32(x + (size_t)rb * H + c + 8) : 0u;
-  }
-}
-
 // Rows [r0, r0 + kBlock) x D of x (row stride H) into a padded shared tile
 // by cp.async, 16 bytes a copy; rows >= n are zeros.
 template <int D>
@@ -743,60 +671,6 @@ __device__ __forceinline__ void load_tile_async(uint16_t (*dst)[D + 8], const __
     const int row = c / kPerRow, col = (c % kPerRow) * 8;
     const bool ok = r0 + row < n;
     cp_async16(&dst[row][col], x + (size_t)(ok ? r0 + row : 0) * H + col, ok);
-  }
-}
-
-// acc[nb] += A . tile^T over the head width for the 8 x NB rows of the tile
-// at tile[0]: the S = Q K^T pattern, with the tile's rows as the product's
-// columns (ldmatrix without .trans).
-template <int D, int NB>
-__device__ __forceinline__ void mma_a_tile_t(float (&acc)[NB][4], const uint32_t (&a)[D / 16][4],
-                                             const uint16_t (*tile)[D + 8], int lane) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-    for (int p = 0; p < NB / 2; ++p) {
-      uint32_t b[4];
-      ldsm_x4(b, &tile[16 * p + (lane & 7) + ((lane >> 4) << 3)][16 * ks + (((lane >> 3) & 1) << 3)]);
-      mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc[db] += P . tile for P the 16 x 8NB fp32 accumulators s (rounded to
-// bf16 A fragments in registers) and the 8NB rows at tile[0] as the
-// reduction (ldmatrix .trans): the O = P V pattern.
-template <int D, int NB>
-__device__ __forceinline__ void mma_p_tile(float (&acc)[D / 8][4], const float (&s)[NB][4],
-                                           const uint16_t (*tile)[D + 8], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, &tile[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)][16 * dp + ((lane >> 4) << 3)]);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Writes rows (g, g + 8) of a warp's 16 x D fp32 accumulators, times mul, as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x, const float (&acc)[D / 8][4],
-                                           const int (&row)[2], const float (&mul)[2], int n, int H, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= n) continue;
-    __nv_bfloat16* p = x + (size_t)row[r] * H + 2 * t;
-#pragma unroll
-    for (int db = 0; db < D / 8; ++db)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * db) =
-          __floats2bfloat162_rn(acc[db][2 * r] * mul[r], acc[db][2 * r + 1] * mul[r]);
   }
 }
 

@@ -7,7 +7,10 @@ the packed H. ``cached_decode_attention`` (K1) takes K/V in q's dtype;
 ``cached_decode_attention_q8`` (K2) takes int8 K/V with fp32 per-token
 scales [B, N], as ``quantize_rows`` writes them. On a CUDA tensor each
 wrapper launches its hand-written Hopper kernel (``csrc/decode_attention.cu``,
-``csrc/decode_attention_q8.cu``; built by nvcc, bound with ctypes) or raises;
+``csrc/decode_attention_q8.cu``; built by nvcc, bound with ctypes) or raises:
+in bf16 the tensor-core kernel (``mma.sync``, the body shared in
+``csrc/decode_mma.cuh``), in f32 a CUDA-core kernel, for the 1e-4 agreement
+that TF32 could not hold;
 on a CPU tensor it runs its plain PyTorch version (``*_reference``), which
 the CPU tests hold against the JAX kernel and ``chip_smoke.py`` holds the
 CUDA kernel against on the card.
@@ -113,6 +116,8 @@ def _launch(fn, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, s
     B, Q, H = q.shape
     N = k.shape[1]
     mask_i8 = mask.to(torch.int8).contiguous()
+    if N % 2:  # the kernels read a mask row two bytes at a time: pad it to an even length
+        mask_i8 = torch.nn.functional.pad(mask_i8, (0, 1))
     qs = _prescale(q, num_heads).contiguous()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

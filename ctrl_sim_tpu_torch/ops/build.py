@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) into ``ctrl_sim_tpu_torch/_build/``
-under a name keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is not. ``build`` starts one nvcc per
+under a name keyed by a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is rebuilt
+and an unchanged one is not. ``build`` starts one nvcc per
 missing library, all at once, and waits for them; a failed build raises with
 nvcc's stderr. Nothing here runs at import time.
 """
@@ -37,7 +38,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of one source, named by a hash of the source, of every
+    header under ``csrc/`` (any of them may be included) and of the flags."""
     digest = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 K1 (decode attention), K2 (decode attention over the int8 cache) and K3/K4
-(training flash attention); and the env step with contacts on, which must
-never wait on a value from the card.
+(training flash attention), each in bf16 (tensor cores) and f32 (CUDA
+cores); and the env step with contacts on, which must never wait on a
+value from the card.
 
 Marked ``cuda``: they skip without a CUDA device (here, and in any CPU run),
 and run on the card with
@@ -34,7 +35,9 @@ def cuda():
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize(
     "B,Q,N,H,heads",
-    [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4)],
+    [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4),
+     # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
+     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2)],
 )
 def test_decode_attention_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N)
@@ -81,9 +84,9 @@ def test_decode_attention_kernel_rejects_non_contiguous_or_misaligned(cuda):
 def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
     """q and an int8 cache quantized from unit normals, K1's inputs: the
     outputs stay below 4 in magnitude, where one bf16 step (1/64 below 4)
-    fits the 2e-2 tolerance; the kernel keeps its weights in fp32 while the
-    plain version rounds them to bf16, so the two may round the output to
-    neighbouring bf16 values."""
+    fits the 2e-2 tolerance; the bf16 kernel rounds its weights against a
+    running max and the plain version against the row's max, so the two
+    may round the output to neighbouring bf16 values."""
     q = torch.randn((B, Q, H), generator=gen, device=cuda).to(dtype)
     k, k_scale = attention.quantize_rows(torch.randn((B, N, H), generator=gen, device=cuda))
     v, v_scale = attention.quantize_rows(torch.randn((B, N, H), generator=gen, device=cuda))
@@ -93,7 +96,9 @@ def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize(
     "B,Q,N,H,heads",
-    [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4)],
+    [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4),
+     # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
+     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2)],
 )
 def test_decode_attention_q8_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N + 1)
@@ -139,6 +144,64 @@ def test_decode_attention_q8_kernel_rejects_non_contiguous_or_misaligned(cuda):
     k = torch.ones((2, 48, 64), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         attention.cached_decode_attention_q8(q, k, k, torch.ones((48, 2), device=cuda).t(), scale, mask, 4)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_on_early_rollout_masks(cuda, int8):
+    """K1 and K2 at the rollout's shapes under the masks of steps 0-31, whose
+    unwritten ring slots leave whole 32-key chunks, and whole warp ranges,
+    with no visible key."""
+    m1, m2 = stream_step_masks(32, 32, 16, 3, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(int(int8))
+    _, k8, v8, ks, vs = _q8_inputs(gen, cuda, 4, 1, 1536, 256, torch.bfloat16)
+    k, v = (torch.randn((4, 1536, 256), generator=gen, device=cuda).bfloat16() for _ in range(2))
+    for t in range(32):
+        for mask in (m1[t], m2[t]):
+            q = torch.randn((4, mask.shape[0], 256), generator=gen, device=cuda).bfloat16()
+            if int8:
+                got = attention.cached_decode_attention_q8(q, k8, v8, ks, vs, mask, 8).float()
+                want = attention.cached_decode_attention_q8_reference(q, k8, v8, ks, vs, mask, 8).float()
+            else:
+                got = attention.cached_decode_attention(q, k, v, mask, 8).float()
+                want = attention.cached_decode_attention_reference(q, k, v, mask, 8).float()
+            rows = (mask != 0).any(dim=1)
+            assert torch.isfinite(got).all(), t
+            torch.testing.assert_close(got[:, rows], want[:, rows], atol=2e-2, rtol=0)
+
+
+def _device_kernel_names(fn) -> str:
+    """The names of the device kernels that ``fn`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attention_dispatches_by_dtype(cuda, int8):
+    """bf16 runs the tensor-core kernel and f32 the CUDA-core one: both
+    launch through the same wrapper, and agree within bf16 rounding."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k8, v8, ks, vs = _q8_inputs(gen, cuda, 4, 32, 1536, 256, torch.float32)
+    k, v = (torch.randn((4, 1536, 256), generator=gen, device=cuda) for _ in range(2))
+    mask = torch.rand((32, 1536), generator=gen, device=cuda) > 0.3
+    fn = attention.cached_decode_attention_q8 if int8 else attention.cached_decode_attention
+    name = "decode_attention_q8" if int8 else "decode_attention"
+    outs = {}
+    for dtype, kernel in ((torch.float32, f"{name}_kernel<"), (torch.bfloat16, f"{name}_mma_kernel<")):
+        args = (q.to(dtype), k8, v8, ks, vs, mask, 8) if int8 else (q.to(dtype), k.to(dtype), v.to(dtype), mask, 8)
+        before = fn.launches
+        names = _device_kernel_names(lambda: outs.__setitem__(dtype, fn(*args)))
+        assert fn.launches == before + 1
+        assert kernel in names, names
+        other = f"{name}_mma_kernel<" if dtype == torch.float32 else f"{name}_kernel<"
+        assert other not in names, names
+        assert outs[dtype].dtype == dtype
+    a, b = outs[torch.float32], outs[torch.bfloat16].float()
+    assert torch.isfinite(b).all()
+    assert (a - b).abs().max().item() <= 5e-2 * max(1.0, a.abs().max().item())
 
 
 def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
