@@ -24,6 +24,13 @@ code is 0 only when every phase passed:
    plain version and one library call, F.scaled_dot_product_attention,
    kept as a yardstick only (for K2 over the K/V dequantized to q's dtype
    beforehand: not the same function, and it reads twice K2's bytes);
+   k1-k2-family-shapes: K1 (bf16 and f32) and K2 (bf16) the same way at
+   the other families' shapes, under the masks that their rollouts give
+   the first decode pass of step 45, recorded from ``run_streaming``
+   (``rollout/setup.py:decode_masks``): DT Q = 48 over N = 1536 keys, IL 32
+   over 1024, trajeglish 32 over 512, the 3-pass decode 16 over 1536, and
+   its t - 1 action pass at t = 0, whose rows see no key (compared on
+   every row: both versions give such a row the uniform average of V);
 4. kernels K3/K4 (training flash attention, forward and backward; bf16 on
    the tensor cores, f32 on CUDA cores) against the plain version on the
    card: output, lse, dq, dk and dv at the train step's shape (B = 16,
@@ -37,17 +44,25 @@ code is 0 only when every phase passed:
    in bf16, 1e-4 and 1e-4 in f32. Times of the kernels at dropout 0.1 and
    0, the plain version and the library yardstick (SDPA with the boolean
    [T, T] mask, at dropout 0) on the train step's B = 16 inputs;
+   k3-k4-family-shapes: the same at the other families' train layouts, in
+   bf16 at dropout 0 and 0.1, timed: B = 16 at T = 32 x 24 x 1 = 768
+   (trajeglish) and T = 2304 with the state token second (DT), B = 4 at
+   T = 1536 (IL);
 5. golden-full: the forward at the deployed shape (hidden 256, 8 heads,
    2 + 4 layers, 24 agents x 32 steps, 200 x 100 road points) with the
    executed reference's weights (``tests/goldens/reference_model_full.npz``,
    loaded by ``utils/torch_import.py``) against its logits: f32 through
    K3's f32 kernel within 1e-4 + 1e-4 |ref|, and bf16 through the
    tensor-core K3 within 1.5 x the error of the same bf16 forward on the
-   plain einsum attention;
+   plain einsum attention; golden-families: the f32 forward of DT, IL and
+   trajeglish with the executed reference's weights
+   (``tests/goldens/reference_model.npz``) through K3's f32 kernel against
+   its logits within 1e-4 + 1e-4 |ref|;
 6. small-input agreement: the streaming rollout at a toy width with
    contacts on, with the bf16-width cache (K1) and the int8 cache (K2), on
    the card, replaying the draws of the same rollout on the CPU, agrees
-   with it;
+   with it; families-small-agreement: the same for DT, IL, trajeglish and
+   the 3-pass decode;
 7. the rollouts at full width: random weights from a seeded generator
    (hidden 256, 8 heads, FF 1024, 2 + 4 layers, bf16 compute, bf16
    cross-attention scores), 256 synthetic scenes of 12 agents packed into
@@ -56,7 +71,11 @@ code is 0 only when every phase passed:
    weights, with the int8 cache (``BENCH_KV=int8``), and last with the
    bf16 cache and contacts off, for the solver's share of the time; every
    output finite, and K1, K2, K1 launched exactly 2 passes x 4 layers x 90
-   steps = 720 times;
+   steps = 720 times; families-rollout: the same scenes through DT, IL and
+   trajeglish (each with weights of its own from the seed), DT with the
+   int8 cache and the default family's 3-pass decode, their kernel
+   launched 1 pass x 4 layers x 90 steps = 360 times (3-pass: 1080) and the
+   other decode kernel never;
 8. train-small-agreement: one train step at a toy width (f32, dropout and
    goal dropout 0) from the same params and batch on the card (K3/K4) and
    on the CPU (plain version): losses, gradients and updated params within
@@ -66,10 +85,12 @@ code is 0 only when every phase passed:
    ``ScenarioStore``, 10 steps of ``Trainer.make_train_step`` at global
    batch 64 as 16 x 4 accumulation; every loss and the gradient norm
    finite, and exactly 4 layers x 4 microbatches = 16 K3 and 16 K4
-   launches per step.
+   launches per step; families-train: 3 such steps of DT, IL and
+   trajeglish on the same store, with the same checks.
 
-Then one line ``{"kernels": [...]}`` and, last, the device line
-``{"ok": true, "device": {...}}``.
+Then one line ``{"kernels": [...]}``, each kernel's row with its times
+at the other families' shapes under ``family_shapes``, and, last, the
+device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,6 +130,17 @@ GOLDEN_CONFIG = {
     "waymo.train_context_length": 32, "waymo.max_num_agents": 24,
     "waymo.max_num_road_polylines": 200, "waymo.max_num_road_pts_per_polyline": 100,
 }
+# the executed reference of each family at a small width (tools/make_model_goldens.py)
+FAMILY_GOLDEN = GOLDEN.with_name("reference_model.npz")
+FAMILY_GOLDEN_CONFIG = {
+    "model.hidden_dim": 64, "model.num_heads": 4, "model.dim_feedforward": 128,
+    "model.num_transformer_encoder_layers": 2, "model.num_decoder_layers": 2, "model.remat": False,
+    "model.predict_rtg": False, "model.predict_future_states": False, "model.compute_dtype": "float32",
+    "waymo.train_context_length": 4, "waymo.max_num_agents": 4,
+    "waymo.max_num_road_polylines": 6, "waymo.max_num_road_pts_per_polyline": 10,
+}
+FAMILY_FLAGS = {"dt": "model.decision_transformer", "il": "model.il", "trajeglish": "model.trajeglish"}
+FAMILY_TRAIN_STEPS = 3
 
 
 def _phase(name: str, t0: float, detail: str = "") -> None:
@@ -208,6 +240,10 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
     got, want = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     rows = (mask != 0).any(dim=1)  # rows with a visible key; the others are unused
+    if not rows.any():
+        # a pass whose rows all see no key (the 3-pass decode's t - 1 actions at t = 0): both
+        # versions give each row the uniform average of V, so every row is compared
+        rows = ~rows
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name} gave non-finite values at B={B} Q={Q} N={N} H={H} {dtype}")
     err = (got.float() - want.float())[:, rows].abs().max().item()
@@ -301,6 +337,28 @@ def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen, own=False, wind
                          torch.tensor([0x5EED], device="cuda"))
     if own or window:
         row["shape"] += f" own={own} window={window}"
+    return row
+
+
+def _flash_family_case(B, K, state_index, dropout_p, gen):
+    """K3/K4 against the plain version at a family's train-step layout (32
+    steps x 24 agents x K token types, H = 256 = 8 x 32, bf16), then timed,
+    with their bounds."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(B, 32, 24, K, 8, 32, torch.bfloat16, gen)
+    spec, seed = fa.MaskSpec(24, K, state_index, False, None), torch.tensor([11], device="cuda")
+    row = _flash_compare(q, k, v, do, spec, 8, dropout_p, seed)
+    row["shape"] += f" K={K} state_index={state_index}"
+    out, lse = fa.flash_mha_fwd(q, k, v, spec, 8, dropout_p, seed)
+    row["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, 8, dropout_p, seed))
+    row["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, 8, dropout_p, seed))
+    bounds = _flash_bounds(B, q.shape[1], 256, 8, spec, "bfloat16")
+    row["fwd_bound_ms"], row["bwd_bound_ms"] = bounds["fwd"][0], bounds["bwd"][0]
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
     return row
 
 
@@ -428,6 +486,49 @@ def _golden_full() -> str:
             f"attention {errs['bfloat16', False]:.4g}, ratio {ratio:.3f} (limit 1.5)")
 
 
+def _golden_families() -> str:
+    """The f32 forward of DT, IL and trajeglish with the executed
+    reference's weights (``tests/goldens/reference_model.npz``) on the card,
+    its self-attention through K3's f32 kernel, against the reference's
+    logits within the CPU test's 1e-4 + 1e-4 |ref|."""
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+    from ctrl_sim_tpu_torch.params import from_flax_params
+    from ctrl_sim_tpu_torch.utils.torch_import import golden_batch, golden_state, params_from_torch_state
+
+    g = np.load(FAMILY_GOLDEN)
+    errs = []
+    for family, flag in FAMILY_FLAGS.items():
+        cfg = load_config({**FAMILY_GOLDEN_CONFIG, flag: True, "model.use_flash_attention": True})
+        model = CtRLSim(cfg)
+        model.load_state_dict(from_flax_params(params_from_torch_state(golden_state(g, family), cfg)), strict=True)
+        model.eval()
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in golden_batch(g, family).items()}
+        want = torch.as_tensor(g[f"{family}_out_action_preds"], device="cuda")
+        fa.flash_mha_fwd.launches = 0
+        with torch.no_grad():
+            out = model(batch)
+        torch.cuda.synchronize()
+        if fa.flash_mha_fwd.launches != cfg.model.num_decoder_layers:
+            raise AssertionError(f"golden {family}: K3 launched {fa.flash_mha_fwd.launches} times, expected "
+                                 f"{cfg.model.num_decoder_layers}")
+        if out.rtg_preds is not None or out.state_preds is not None:
+            raise AssertionError(f"golden {family}: the family has no RTG or future-state head")
+        got = out.action_preds.float()
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - 1e-4 - 1e-4 * want.abs()).max().item()
+        if not torch.isfinite(got).all() or excess > 0:
+            raise AssertionError(f"golden {family} (K3 f32 kernel) off the reference by {err}: beyond 1e-4 + "
+                                 f"1e-4 |ref| by {excess}")
+        errs.append(f"{family} {err:.3g}")
+    return ("T = 4 x 4 x K, H = 64/4, reference weights, f32 via K3 f32; max |d action logits| "
+            + ", ".join(errs) + " (within 1e-4 + 1e-4 |ref|)")
+
+
 class _RecordingSampler:
     """The policy's draws, with the logits they were drawn from."""
 
@@ -458,25 +559,27 @@ class _ReplaySampler:
         return self.act[t]
 
 
-def _small_agreement(kv_cache_dtype: str) -> str:
-    """The toy-width rollout (contacts on) on the card against the same
-    rollout on the CPU (plain kernels), with the CPU run's draws replayed
-    on the card."""
+def _small_agreement(family: str = "ctrl_sim", extra: dict | None = None) -> str:
+    """The toy-width rollout (contacts on) of a model family (with
+    ``extra`` overrides) on the card against the same rollout on the CPU
+    (plain kernels), with the CPU run's draws replayed on the card."""
     import torch
 
-    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
     from ctrl_sim_tpu_torch.data import stack_scenarios, synthetic_scenario, to_torch
     from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
     from ctrl_sim_tpu_torch.params import init_params
     from ctrl_sim_tpu_torch.rollout.streaming import PolicySampler, run_streaming
 
-    cfg = load_config({
+    cfg = preset(family)
+    for key, value in {
         "model.hidden_dim": 64, "model.num_heads": 4, "model.dim_feedforward": 128,
         "model.num_transformer_encoder_layers": 1, "model.num_decoder_layers": 2,
         "model.compute_dtype": "float32", "waymo.max_num_agents": 12, "sim.max_agents": 12,
         "eval.agent_slots": 8, "waymo.train_context_length": 8, "sim.steps": 16,
-        "sim.history_steps": 4, "model.kv_cache_dtype": kv_cache_dtype,
-    })
+        "sim.history_steps": 4, **(extra or {}),
+    }.items():
+        cfg = _set_dotted(cfg, key, value)
     scenes = stack_scenarios(
         [synthetic_scenario(cfg, seed=SEED + s, num_agents=8, arena_half=60.0, num_lanes=2)
          for s in range(4)], cfg)
@@ -498,7 +601,8 @@ def _small_agreement(kv_cache_dtype: str) -> str:
     if logit_err > 1e-3 or pos_err > 1e-3 or rew_err > 1e-3:
         raise AssertionError(
             f"card and CPU rollouts disagree: logits {logit_err}, positions {pos_err}, reward8 {rew_err}")
-    return (f"{kv_cache_dtype} cache: max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, "
+    label = f"{family} {extra}" if extra else family
+    return (f"{label}: max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, "
             f"|d reward8| {rew_err:.3g}")
 
 
@@ -603,7 +707,97 @@ def _train_full(t_phase: float) -> dict:
            f"{step_ms[0]:.1f}, steady median {statistics.median(step_ms[1:]):.1f}; batch build ms median "
            f"{statistics.median(batch_ms[1:]):.1f}; peak memory {peak / 2**30:.2f} GiB; K3/K4 launches {launches} "
            f"(one cold run on this card, not a benchmark)")
-    return {"launches": launches}
+    return {"launches": launches, "store": store}
+
+
+def _train_families(store) -> dict:
+    """``FAMILY_TRAIN_STEPS`` full-width train steps of DT, IL and
+    trajeglish (dropout 0.1, global batch 64 as 16 x 4, the default
+    family's store of replayed scenes): every loss finite, and K3/K4
+    launched 4 layers x 4 microbatches = 16 times each per step."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+    from ctrl_sim_tpu_torch.profile_train import full_width_setup
+
+    rows = {}
+    for family in FAMILY_FLAGS:
+        cfg, store, state, train_step, data_gen, dropout_gen, _ = full_width_setup(SEED, family, store)
+        per_step = cfg.model.num_decoder_layers * cfg.train.accum_steps
+        step_ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_mha_fwd.launches = fa.flash_mha_bwd.launches = 0
+        for i in range(FAMILY_TRAIN_STEPS):
+            batch = store.sample_batch(data_gen, cfg.train.global_batch_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = train_step(state, batch, dropout_gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            values = [float(x) for x in losses] + [float(state.grad_norm)]
+            if not all(map(math.isfinite, values)) or values[0] <= 0:
+                raise AssertionError(f"{family} train step {i}: non-finite or zero loss or gradient norm {values}")
+        launches = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches)
+        expected = FAMILY_TRAIN_STEPS * per_step
+        if launches != (expected, expected):
+            raise AssertionError(f"{family}: {FAMILY_TRAIN_STEPS} train steps launched K3/K4 {launches} times, "
+                                 f"expected {expected} each")
+        T = cfg.waymo.train_context_length * cfg.waymo.max_num_agents * cfg.model.num_token_types
+        rows[family] = {"T": T, "launches_per_step": launches[0] // FAMILY_TRAIN_STEPS, "step_ms": step_ms,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": values[0]}
+        print(f"  {family}: T = {T}, loss {values[0]:.4f}, step ms {', '.join(f'{x:.1f}' for x in step_ms)} "
+              f"(steady median {statistics.median(step_ms[1:]):.1f}), peak memory "
+              f"{rows[family]['peak_gib']:.2f} GiB, K3/K4 launches {launches}", flush=True)
+        del state, train_step
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _rollout(phase: str, cfg, model, sc, controlled, tilt) -> tuple[float, int, str]:
+    """One full-width ``run_streaming`` chunk on the card, the decode
+    kernels' counts set to 0 just before it and read just after: its cache's
+    kernel must launch once per pass, layer and step, the other never, and
+    every output must be finite. Returns (seconds, launches, kernel name)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import attention
+    from ctrl_sim_tpu_torch.rollout.setup import LANES
+    from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
+
+    int8 = cfg.model.kv_cache_dtype == "int8"
+    kernel = attention.cached_decode_attention_q8 if int8 else attention.cached_decode_attention
+    torch.cuda.synchronize()
+    attention.cached_decode_attention.launches = 0
+    attention.cached_decode_attention_q8.launches = 0
+    start = time.perf_counter()
+    out = run_streaming(cfg, model, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launched = kernel.launches
+    other = attention.cached_decode_attention.launches + attention.cached_decode_attention_q8.launches - launched
+    steps = cfg.sim.steps
+    expected = _decode_passes(cfg) * cfg.model.num_decoder_layers * steps
+    if launched != expected or other:
+        raise AssertionError(f"{phase}: {kernel.__name__} launched {launched} times on the main path, expected "
+                             f"{expected}; the other decode kernel {other} times, expected 0")
+    for name, x in out._asdict().items():
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{phase}: non-finite rollout output {name}")
+    if out.position.shape != (steps + 1, LANES, sc.traj_position.shape[1], 2):
+        raise AssertionError(f"{phase}: unexpected position shape {tuple(out.position.shape)}")
+    return elapsed, launched, kernel.__name__
+
+
+def _decode_passes(cfg) -> int:
+    """Decoder passes per env step that ``rollout/streaming.py`` should
+    make, the expectation the launch counts are held to: the default
+    family's fused decode takes 2 (3 when sequential), DT, IL and
+    trajeglish 1."""
+    mc = cfg.model
+    if mc.decision_transformer or mc.il or mc.trajeglish:
+        return 1
+    return 3 if cfg.eval.streaming_passes >= 3 else 2
 
 
 def main() -> int:
@@ -616,8 +810,7 @@ def main() -> int:
         from ctrl_sim_tpu_torch.ops import attention, build
         from ctrl_sim_tpu_torch.ops import flash_attention as fa
         from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
-        from ctrl_sim_tpu_torch.rollout.setup import LANES, SLOTS, full_width_rollout
-        from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
+        from ctrl_sim_tpu_torch.rollout.setup import FAMILY_CASES, LANES, SLOTS, decode_masks, full_width_rollout
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -690,6 +883,31 @@ def main() -> int:
     detail = _quantize_rows_on_card(gen)
     _phase("k2-vs-plain", t0, f"{len(q8)} cases within 2e-2 (bf16) / 1e-4 (f32); {detail}")
 
+    # the families' decode shapes under the masks their rollouts give the
+    # first pass of step 45; the 3-pass decode's t-1 action pass at t = 0
+    # sees no key at all
+    t0 = time.perf_counter()
+    recorded = {case: decode_masks(case, t_mid + 1, "cuda") for case in ("dt", "il", "trajeglish", "3-pass")}
+    family_masks = {case: masks[t_mid][0] for case, masks in recorded.items()}
+    family_masks["3-pass t=0"] = recorded["3-pass"][0][0]
+    if family_masks["3-pass t=0"].any():
+        raise AssertionError("expected every row of the 3-pass decode's t = 0 action pass to see no key")
+    fam_k1, fam_k2 = {}, {}
+    for name, mask in family_masks.items():
+        for dtype in ("bfloat16", "float32"):
+            fam_k1[f"{name} {dtype}"] = _attention_case(LANES, *mask.shape, 256, 8, dtype, mask, gen)
+        fam_k2[f"{name} bfloat16"] = _attention_case(LANES, *mask.shape, 256, 8, "bfloat16", mask, gen, int8=True)
+    for kname, rows in (("K1", fam_k1), ("K2", fam_k2)):
+        for name, row in rows.items():
+            print(f"  {kname} {name}: {row['shape']} err {row['max_abs_err']:.3g} "
+                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    dt_row = fam_k1["dt bfloat16"]
+    _phase("k1-k2-family-shapes", t0,
+           f"{len(fam_k1) + len(fam_k2)} cases within 2e-2 (bf16) / 1e-4 (f32); DT's (Q, N) = (48, 1536) in bf16: "
+           f"K1 {dt_row['ms']:.4f} ms, plain {dt_row['plain_ms']:.4f} ms, SDPA (bool mask) "
+           f"{dt_row['library_ms']:.4f} ms, bound {dt_row['bound_ms']:.4f} ms")
+
     t0 = time.perf_counter()
     ft = _flash_main(gen)
     flash = {"train-step bfloat16 p=0.1": ft["check"]}
@@ -718,11 +936,30 @@ def main() -> int:
     _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
 
     t0 = time.perf_counter()
+    fam_flash = {}
+    for name, B, K, state_index in (("trajeglish", 16, 1, 0), ("dt", 16, 3, 1), ("il", 4, 2, 0)):
+        for p in (0.0, 0.1):
+            fam_flash[f"{name} p={p}"] = _flash_family_case(B, K, state_index, p, gen)
+    for name, row in fam_flash.items():
+        print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, gradient err {row['grad_err']:.3g} "
+              f"of max |grad|; K3 {row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}), K4 {row['bwd_ms']:.4f} "
+              f"ms (bound {row['bwd_bound_ms']:.4f})")
+    _phase("k3-k4-family-shapes", t0, f"{len(fam_flash)} cases within 2e-2 / 5e-2 (bf16)")
+
+    t0 = time.perf_counter()
     _phase("golden-full", t0, _golden_full())
 
     t0 = time.perf_counter()
-    detail = "; ".join(_small_agreement(kv) for kv in ("bfloat16", "int8"))
+    _phase("golden-families", t0, _golden_families())
+
+    t0 = time.perf_counter()
+    detail = "; ".join(_small_agreement("ctrl_sim", {"model.kv_cache_dtype": kv}) for kv in ("bfloat16", "int8"))
     _phase("small-agreement", t0, detail)
+
+    t0 = time.perf_counter()
+    detail = "; ".join(_small_agreement(family, extra) for family, extra in (
+        ("dt", None), ("il", None), ("trajeglish", None), ("ctrl_sim", {"eval.streaming_passes": 3})))
+    _phase("families-small-agreement", t0, detail)
 
     t0 = time.perf_counter()
     cfgs, models, sc, controlled, tilt = full_width_rollout(SEED)
@@ -730,38 +967,28 @@ def main() -> int:
     _phase("setup", t0, f"{LANES} scenes, {params} params, contacts on")
 
     rollout_s, rollout_launches = {}, {}
-    for phase, case, kernel in (("rollout", "bf16", attention.cached_decode_attention),
-                                ("rollout-int8", "int8", attention.cached_decode_attention_q8),
-                                ("rollout-contacts-off", "contacts-off", attention.cached_decode_attention)):
-        c, m = cfgs[case], models[case]
+    for phase, case in (("rollout", "bf16"), ("rollout-int8", "int8"), ("rollout-contacts-off", "contacts-off")):
         t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        attention.cached_decode_attention.launches = 0
-        attention.cached_decode_attention_q8.launches = 0
-        start = time.perf_counter()
-        out = run_streaming(c, m, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - start
-        launched = kernel.launches
-        other = (attention.cached_decode_attention.launches + attention.cached_decode_attention_q8.launches
-                 - launched)
-        steps = c.sim.steps
-        expected = 2 * c.model.num_decoder_layers * steps
-        if launched != expected or other:
-            raise AssertionError(f"{phase}: {kernel.__name__} launched {launched} times on the main path, "
-                                 f"expected {expected}; the other decode kernel {other} times, expected 0")
-        for name, x in out._asdict().items():
-            if not torch.isfinite(x.float()).all():
-                raise AssertionError(f"{phase}: non-finite rollout output {name}")
-        if out.position.shape != (steps + 1, LANES, sc.traj_position.shape[1], 2):
-            raise AssertionError(f"{phase}: unexpected position shape {tuple(out.position.shape)}")
+        c = cfgs[case]
+        elapsed, launched, name = _rollout(phase, c, models[case], sc, controlled, tilt)
         rollout_s[phase], rollout_launches[phase] = elapsed, launched
         contacts = "on" if c.sim.resolve_contacts else "off"
-        _phase(phase, t0, f"{LANES} lanes x {steps} steps, {c.model.kv_cache_dtype} cache, contacts {contacts}, in "
-               f"{elapsed:.3f}s = {LANES * steps / elapsed:.1f} env-steps/s on this card (one cold run, not a "
-               f"benchmark); {kernel.__name__} launches {launched}")
-        del out
+        _phase(phase, t0, f"{LANES} lanes x {c.sim.steps} steps, {c.model.kv_cache_dtype} cache, contacts "
+               f"{contacts}, in {elapsed:.3f}s = {LANES * c.sim.steps / elapsed:.1f} env-steps/s on this card (one "
+               f"cold run, not a benchmark); {name} launches {launched}")
     k1_launches, k2_launches = rollout_launches["rollout"], rollout_launches["rollout-int8"]
+
+    t0 = time.perf_counter()
+    family_launches = {}
+    for case in FAMILY_CASES:
+        c = cfgs[case]
+        elapsed, family_launches[case], name = _rollout(f"families-rollout {case}", c, models[case], sc,
+                                                       controlled, tilt)
+        print(f"  {case}: {LANES} lanes x {c.sim.steps} steps, {c.model.kv_cache_dtype} cache, contacts on, "
+              f"{_decode_passes(c)} pass(es) a step, in {elapsed:.3f}s cold = {LANES * c.sim.steps / elapsed:.1f} "
+              f"env-steps/s on this card (one cold run, not a benchmark); {name} launches {family_launches[case]}",
+              flush=True)
+    _phase("families-rollout", t0, f"{len(FAMILY_CASES)} rollouts, each kernel launched as expected, outputs finite")
     del sc, models
     torch.cuda.empty_cache()
 
@@ -773,11 +1000,31 @@ def main() -> int:
     train = _train_full(t0)
     k3_launches, k4_launches = train["launches"]
 
+    t0 = time.perf_counter()
+    fam_train = _train_families(train.pop("store"))
+    _phase("families-train", t0, f"{FAMILY_TRAIN_STEPS} full-width steps each of {', '.join(fam_train)} on K3/K4, "
+           f"losses finite")
+
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
     q8_rows = [q8["pass1 bfloat16"], q8["pass2 bfloat16"]]
     mean_q8 = lambda key: statistics.fmean(r[key] for r in q8_rows)  # noqa: E731
     main_flash = ft["check"]  # the inputs the kernels were timed on
+    def decode_family_rows(rows, rollouts):
+        """The bf16 rows of the family shapes, each with the launches of the
+        family rollout (``rollouts``: shape -> rollout case) it belongs to."""
+        return [{"case": name, "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "library_ms": r["library_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "max_abs_err": r["max_abs_err"],
+                 "launches_per_chunk": family_launches.get(rollouts.get(name.removesuffix(" bfloat16")))}
+                for name, r in rows.items() if name.endswith(" bfloat16")]
+
+    def flash_family_rows(key):
+        return [{"case": name, "shape": r["shape"], "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                 "max_abs_err": r["out_err"] if key == "fwd" else r["grad_abs_err"],
+                 "launches_per_step": fam_train[name.split(" ")[0]]["launches_per_step"]}
+                for name, r in fam_flash.items()]
+
     print(json.dumps({"kernels": [
         {
             "name": "cached_decode_attention",
@@ -795,6 +1042,8 @@ def main() -> int:
             "build_s": build_s,
             "rollout_s": rollout_s["rollout"],
             "implementation": DECODE_IMPLEMENTATION,
+            "family_shapes": decode_family_rows(fam_k1, {"dt": "dt", "il": "il", "trajeglish": "trajeglish",
+                                                           "3-pass": "3-pass", "3-pass t=0": "3-pass"}),
         },
         {
             "name": "cached_decode_attention_q8",
@@ -812,6 +1061,7 @@ def main() -> int:
             "library": "F.scaled_dot_product_attention over K/V dequantized to bf16 beforehand (not timed); "
                        "not the same function, it reads twice K2's bytes",
             "rollout_s": rollout_s["rollout-int8"],
+            "family_shapes": decode_family_rows(fam_k2, {"dt": "dt-int8"}),
             "implementation": DECODE_IMPLEMENTATION + "; int8 chunks widened to bf16 in shared memory, "
                               "k_scale on the scores, v_scale on the weights before their bf16 rounding",
         },
@@ -831,6 +1081,7 @@ def main() -> int:
             "library_ms": ft["library_fwd_ms"],
             "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
             "implementation": IMPLEMENTATION,
+            "family_shapes": flash_family_rows("fwd"),
         },
         {
             "name": "flash_mha_bwd",
@@ -848,6 +1099,7 @@ def main() -> int:
             "library_ms": ft["library_bwd_ms"],
             "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
             "implementation": IMPLEMENTATION,
+            "family_shapes": flash_family_rows("bwd"),
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

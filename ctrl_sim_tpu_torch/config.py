@@ -361,11 +361,27 @@ def load_config(overrides: dict | None = None) -> Config:
     return cfg
 
 
+_NO_RTG_HEADS = {"model.predict_future_states": False, "model.predict_rtg": False, "policy.predict_rtgs": False}
+# the reference's cfgs/model/{dt,il,trajeglish}.yaml
+_PRESETS = {
+    "ctrl_sim": {},
+    "dt": {
+        "model.decision_transformer": True, **_NO_RTG_HEADS,
+        "policy.discretize_rtgs": False, "policy.real_time_rewards": True, "policy.max_return": True,
+        "policy.tilt": TiltConfig(tilt=False),
+    },
+    "il": {"model.il": True, **_NO_RTG_HEADS, "policy.use_rtg": False, "policy.tilt": TiltConfig(tilt=False)},
+    "trajeglish": {
+        "model.trajeglish": True, **_NO_RTG_HEADS, "policy.use_rtg": False, "policy.tilt": TiltConfig(tilt=False),
+    },
+}
+
+
 def preset(name: str) -> Config:
-    """The configuration of a model family. Only the default CtRL-Sim family
-    is ported; the DT, IL, trajeglish and CTG++ presets raise."""
-    if name == "ctrl_sim":
-        return load_config()
-    if name in ("dt", "il", "trajeglish", "ctg_plus_plus"):
-        raise NotImplementedError(f"preset {name!r}: only the ctrl_sim family is ported")
-    raise ValueError(f"unknown preset: {name!r}")
+    """The configuration of a model family: CtRL-Sim, DT, IL or trajeglish.
+    The CTG++ family is not ported and raises."""
+    if name == "ctg_plus_plus":
+        raise NotImplementedError("preset 'ctg_plus_plus': the CTG++ family is not ported")
+    if name not in _PRESETS:
+        raise ValueError(f"unknown preset: {name!r}")
+    return load_config(_PRESETS[name])

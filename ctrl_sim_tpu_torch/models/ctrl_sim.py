@@ -1,14 +1,15 @@
 """CtRL-Sim model and its losses (port of ``ctrl_sim_tpu/models/ctrl_sim.py``).
 
 ``CtRLSim.forward`` is the training pass over whole windows; the streaming
-interface (``encode_rollout_memory``, ``precompute_memory_kv``,
-``stream_action_state``, ``stream_rtg`` and the two heads) drives the
-rollout. ``compute_loss`` replicates the reference's compute_loss
+interface (``encode_rollout_memory``, ``precompute_memory_kv``, the
+``stream_*`` passes and the two heads) drives the rollout.
+``compute_loss`` replicates the reference's compute_loss
 (models/ctrl_sim.py:48-189): masked action and RTG cross entropies and the
 future-state MSE, the Python shift loop replaced by a gather.
 
-Only the default CtRL-Sim family (state, rtg, action tokens) is ported:
-the DT, IL and trajeglish layouts raise ``NotImplementedError``.
+The DT, IL and trajeglish families are token layouts of the same model
+(``model.decision_transformer`` / ``il`` / ``trajeglish``); the CTG++
+family is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ class CtRLSim(nn.Module):
     def __init__(self, cfg: Config, device: torch.device | str | None = None):
         super().__init__()
         mc = cfg.model
-        if mc.trajeglish or mc.il or mc.decision_transformer or mc.ctg_plus_plus:
-            raise NotImplementedError("only the default CtRL-Sim family is ported")
+        if mc.ctg_plus_plus:
+            raise NotImplementedError("the CTG++ family is not ported")
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = getattr(torch, mc.compute_dtype)
@@ -89,6 +90,25 @@ class CtRLSim(nn.Module):
             mc.num_token_types, mc.hidden_dim, dtype, device,
         )
 
+    def stream_state(
+        self,
+        states12: Tensor,  # [B, A, 12]
+        goals: Tensor,  # [B, A, goal_dim]
+        existence: Tensor,  # [B, A]
+        t: int,
+        cache: KVCache,
+        memory_valid: Tensor,
+        memory_kv: list[tuple[Tensor, Tensor]],
+    ) -> tuple[Tensor, KVCache]:
+        """Append this step's state tokens; returns (state-stream outputs
+        [B, A, H], which feed the RTG head, cache)."""
+        a_ids, t_ids = self._ids(states12, t)
+        emb = self.encoder.embed_state_tokens(states12, goals, t_ids, a_ids, existence[..., None])
+        return self.decoder.decode_step(
+            self.encoder.embed_ln(emb), self.cfg.model.state_token_index, t, cache, memory_valid,
+            self.cfg.waymo.train_context_length, memory_kv,
+        )
+
     def stream_action_state(
         self,
         prev_actions: Tensor,  # [B, A] discrete ids applied at step t-1
@@ -124,6 +144,27 @@ class CtRLSim(nn.Module):
         )
         return x[:, A:], cache
 
+    def stream_prev_action(
+        self,
+        prev_actions: Tensor,  # [B, A] discrete ids applied at step t-1
+        prev_existence: Tensor,  # [B, A]
+        t: int,
+        cache: KVCache,
+        memory_valid: Tensor,
+        memory_kv: list[tuple[Tensor, Tensor]],
+    ) -> tuple[Tensor, KVCache]:
+        """The sequential 3-pass decode's first pass
+        (``eval.streaming_passes=3``): the t-1 action tokens in a pass of
+        their own, before this step's state tokens overwrite the ring slot
+        of t - window, so they see the whole window, as the reference's
+        sequential decode does. Only the cache write is used."""
+        a_ids, t_prev_ids = self._ids(prev_actions, max(t - 1, 0))
+        emb = self.encoder.embed_action_tokens(prev_actions, t_prev_ids, a_ids, prev_existence[..., None])
+        return self.decoder.decode_step(
+            self.encoder.embed_ln(emb), self.cfg.model.num_token_types - 1, t - 1, cache, memory_valid,
+            self.cfg.waymo.train_context_length, memory_kv,
+        )
+
     def stream_rtg(
         self,
         rtg_bins: Tensor,  # [B, A, 3]
@@ -138,9 +179,28 @@ class CtRLSim(nn.Module):
         a_ids, t_ids = self._ids(rtg_bins, t)
         emb = self.encoder.embed_rtg_tokens(rtg_bins, t_ids, a_ids, existence[..., None])
         emb = self.encoder.embed_ln(emb)
+        token_type = 0 if self.cfg.model.decision_transformer else 1
         return self.decoder.decode_step_groups(
-            [(emb, 1, t)], cache, memory_valid, self.cfg.waymo.train_context_length,
+            [(emb, token_type, t)], cache, memory_valid, self.cfg.waymo.train_context_length,
             memory_kv, mask_override=mask_override,
+        )
+
+    def stream_action(
+        self,
+        actions: Tensor,  # [B, A] discrete ids
+        existence: Tensor,  # [B, A]
+        t: int,
+        cache: KVCache,
+        memory_valid: Tensor,
+        memory_kv: list[tuple[Tensor, Tensor]],
+    ) -> tuple[Tensor, KVCache]:
+        """Append this step's action tokens (they fill the cache for later
+        steps; the outputs feed the future-state head)."""
+        a_ids, t_ids = self._ids(actions, t)
+        emb = self.encoder.embed_action_tokens(actions, t_ids, a_ids, existence[..., None])
+        return self.decoder.decode_step(
+            self.encoder.embed_ln(emb), self.cfg.model.num_token_types - 1, t, cache, memory_valid,
+            self.cfg.waymo.train_context_length, memory_kv,
         )
 
     def rtg_head(self, x: Tensor) -> Tensor:
@@ -189,9 +249,15 @@ def compute_loss(cfg: Config, batch: dict, preds: DecoderOutput) -> LossDict:
     moving = batch["moving_agent_mask"]  # [B, A]
     zero = torch.zeros((), device=agent_states.device)
 
-    # action CE (ctrl_sim.py:50-86)
-    mask = existence * moving[:, :, None] if mc.supervise_moving else existence
-    loss_actions = mc.loss_action_coef * _masked_ce(preds.action_preds, batch["actions"], mask)
+    # action CE (ctrl_sim.py:50-86); trajeglish's action token at t predicts
+    # the action at t + 1
+    if mc.trajeglish:
+        logits, targets, mask = preds.action_preds[:, :, :-1], batch["actions"][:, :, 1:], existence[:, :, 1:]
+    else:
+        logits, targets, mask = preds.action_preds, batch["actions"], existence
+    if mc.supervise_moving:
+        mask = mask * moving[:, :, None]
+    loss_actions = mc.loss_action_coef * _masked_ce(logits, targets, mask)
 
     # RTG CE (ctrl_sim.py:88-111), masked like the actions; logits bins-major
     loss_rtg_goal = loss_rtg_veh = loss_rtg_road = zero

@@ -8,10 +8,10 @@ Two execution paths:
   kernels K3/K4 (ops/flash_attention.py) with the mask evaluated in the
   kernel; otherwise through the plain einsum path with the dense
   [N, N] mask of ops/masks.py.
-- ``decode_step_groups``: the streaming rollout's incremental decode over a
-  ring-buffer KV cache through the decode-attention kernel K1, or K2 over an
-  int8 cache (ops/attention.py), with the static episode memory's
-  cross-attention K/V projected once.
+- ``decode_step_groups`` (and ``decode_step``, one group): the streaming
+  rollout's incremental decode over a ring-buffer KV cache through the
+  decode-attention kernel K1, or K2 over an int8 cache (ops/attention.py),
+  with the static episode memory's cross-attention K/V projected once.
 
 Heads: 1000-way action categorical (read from the rtg-token stream), 350
 bins x 3 return-to-go components (from the state-token stream), and 32
@@ -174,6 +174,20 @@ class Decoder(nn.Module):
             (layer.cross_attn.k_proj(memory), layer.cross_attn.v_proj(memory))
             for layer in self.layers
         ]
+
+    def decode_step(
+        self,
+        tokens: Tensor,  # [B, A, H] one timestep of one token type, after embed_ln
+        token_type: int,
+        t: int,
+        cache: KVCache,
+        memory_valid: Tensor,
+        window: int,
+        memory_kv: list[tuple[Tensor, Tensor]],
+    ) -> tuple[Tensor, KVCache]:
+        """Incremental decode of A new tokens: ``decode_step_groups`` with
+        one group."""
+        return self.decode_step_groups([(tokens, token_type, t)], cache, memory_valid, window, memory_kv)
 
     def decode_step_groups(
         self,

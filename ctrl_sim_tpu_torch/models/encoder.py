@@ -5,9 +5,11 @@ State+goal, return-to-go and action tokens are embedded with timestep and
 agent-id embeddings; the cross-attention memory is the map polylines plus
 the initial-state tokens through the transformer encoder layers. The
 streaming rollout calls the embedders and ``encode_memory`` one step at a
-time; training calls ``forward``, which builds the interleaved (state, rtg,
-action) sequence of a whole window. Only the default CtRL-Sim layout is
-ported.
+time; training calls ``forward``, which builds the interleaved token
+sequence of a whole window in the family's layout: (state, rtg, action) for
+CtRL-Sim, (rtg, state, action) for DT, whose returns are continuous and
+embedded by dense layers, (state, action) for IL and the actions alone for
+trajeglish.
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ class Encoder(nn.Module):
         self.embed_goal = MLPLayer(wc.goal_dim, H, H, dtype, device)
         self.embed_state_goal = Dense(2 * H, H, dtype, device)
         self.embed_action = Embed(wc.action_dim, H, dtype, device)
-        self.embed_rtg_goal = Embed(wc.rtg_discretization, H, dtype, device)
-        self.embed_rtg_veh = Embed(wc.rtg_discretization, H, dtype, device)
-        self.embed_rtg_road = Embed(wc.rtg_discretization, H, dtype, device)
+        for name in ("embed_rtg_goal", "embed_rtg_veh", "embed_rtg_road"):
+            setattr(self, name, Dense(1, H, dtype, device) if mc.decision_transformer
+                    else Embed(wc.rtg_discretization, H, dtype, device))
         self.embed_rtg = Dense(3 * H, H, dtype, device)
         self.embed_timestep = Embed(wc.max_timestep, H, dtype, device)
         self.embed_agent_id = Embed(wc.max_num_agents, H, dtype, device)
@@ -77,9 +79,15 @@ class Encoder(nn.Module):
         return out * existence.to(dt)
 
     def embed_rtg_tokens(self, rtgs, t_ids, agent_ids, existence) -> Tensor:
-        """rtgs [..., 3] integer bins."""
-        r = rtgs.long()
-        parts = [self.embed_rtg_goal(r[..., 0]), self.embed_rtg_veh(r[..., 1]), self.embed_rtg_road(r[..., 2])]
+        """rtgs [..., 3]: integer bins, or for DT continuous values (taken
+        as floats, training's bins included)."""
+        if self.cfg.model.decision_transformer:
+            r = rtgs.to(self.compute_dtype)
+            parts = [self.embed_rtg_goal(r[..., 0:1]), self.embed_rtg_veh(r[..., 1:2]),
+                     self.embed_rtg_road(r[..., 2:3])]
+        else:
+            r = rtgs.long()
+            parts = [self.embed_rtg_goal(r[..., 0]), self.embed_rtg_veh(r[..., 1]), self.embed_rtg_road(r[..., 2])]
         out = (
             self.embed_rtg(torch.cat(parts, dim=-1))
             + self.embed_timestep(t_ids)
@@ -149,8 +157,15 @@ class Encoder(nn.Module):
         state_emb = self.embed_state_tokens(tflat(states12), tflat(goals), t_ids, a_ids, ex, goal_keep)
         rtg_emb = self.embed_rtg_tokens(tflat(batch["rtgs"]), t_ids, a_ids, ex)
         action_emb = self.embed_action_tokens(tflat(batch["actions"]), t_ids, a_ids, ex)
-        tokens = torch.stack([state_emb, rtg_emb, action_emb], dim=2).reshape(B, T * A * 3, H)
-        tokens = self.embed_ln(tokens)
+        if mc.decision_transformer:
+            parts = [rtg_emb, state_emb, action_emb]
+        elif mc.trajeglish:
+            parts = [action_emb]
+        elif mc.il:
+            parts = [state_emb, action_emb]
+        else:
+            parts = [state_emb, rtg_emb, action_emb]
+        tokens = self.embed_ln(torch.stack(parts, dim=2).reshape(B, T * A * len(parts), H))
 
         initial_state_emb = state_emb.reshape(B, T, A, H)[:, 0]
         initial_exist = ex.reshape(B, T, A)[:, 0] > 0

@@ -5,8 +5,10 @@ the device.
 
 needs one CUDA card. Builds the full-width rollout set-up
 (``rollout/setup.py``: 256 synthetic scenes, 90 steps, contacts on) and,
-for the bf16 cache (kernel K1), the int8 cache (kernel K2) and the bf16
-cache with contacts off, runs one warm-up rollout, times ``RUNS``
+for each of its cases (the default family with the bf16 cache, kernel K1,
+the int8 cache, kernel K2, and the bf16 cache with contacts off; DT, IL
+and trajeglish, DT with the int8 cache, and the default family's
+sequential 3-pass decode), runs one warm-up rollout, times ``RUNS``
 rollouts, and runs one more under torch.profiler:
 its device busy time (the sum of its kernels' times), the decode kernel's
 share of it and the top kernels. The profiler slows the host, so only its
@@ -35,7 +37,7 @@ def _device_ms_by_kernel(prof) -> dict[str, float]:
 def profile_rollout(seed: int = 0) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from ctrl_sim_tpu_torch.rollout.setup import CASES, full_width_rollout
+    from ctrl_sim_tpu_torch.rollout.setup import full_width_rollout
     from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
 
     cfgs, models, sc, controlled, tilt = full_width_rollout(seed)
@@ -47,7 +49,7 @@ def profile_rollout(seed: int = 0) -> None:
         if not torch.isfinite(out.position).all():
             raise AssertionError(f"{name}: non-finite positions")
 
-    for name in CASES:
+    for name in cfgs:
         rollout(name)  # warm-up
         walls = []
         for _ in range(RUNS):

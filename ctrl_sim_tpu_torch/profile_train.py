@@ -21,23 +21,27 @@ import torch
 SCENES, AGENTS, ARENA, LANE_ROADS = 64, 12, 300.0, 4  # bench.py's scene recipe
 
 
-def full_width_setup(seed: int = 0):
-    """The full-width training set-up on the card. Returns (cfg, store,
-    state, train_step, data_gen, dropout_gen, replay_s), replay_s being
-    the seconds the store's replay through physics took."""
-    from ctrl_sim_tpu_torch.config import load_config
+def full_width_setup(seed: int = 0, family: str = "ctrl_sim", store=None):
+    """The full-width training set-up of a model family (``config.preset``)
+    on the card. Returns (cfg, store, state, train_step, data_gen,
+    dropout_gen, replay_s), replay_s being the seconds the store's replay
+    through physics took; a ``store`` given (every family trains on the
+    same CtRL-Sim batches) is used as it is, and replay_s is 0."""
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
     from ctrl_sim_tpu_torch.data import synthetic_scenario
     from ctrl_sim_tpu_torch.data.store import ScenarioStore
     from ctrl_sim_tpu_torch.training import Trainer
 
-    cfg = load_config({"train.accum_steps": 4})
-    scenes = [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
-              for s in range(SCENES)]
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    store = ScenarioStore.from_scenes(cfg, scenes)
-    torch.cuda.synchronize()
-    replay_s = time.perf_counter() - start
+    cfg = _set_dotted(preset(family), "train.accum_steps", 4)
+    replay_s = 0.0
+    if store is None:
+        scenes = [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
+                  for s in range(SCENES)]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        store = ScenarioStore.from_scenes(cfg, scenes)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - start
     trainer = Trainer(cfg)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
     data_gen = torch.Generator(device="cuda").manual_seed(seed)

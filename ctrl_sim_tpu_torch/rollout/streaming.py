@@ -1,25 +1,38 @@
 """Streaming closed-loop rollout with incremental KV-cached decoding
-(port of ``ctrl_sim_tpu/rollout/streaming.py:run_streaming`` for the
-default CtRL-Sim family and the fused 2-pass decode).
+(port of ``ctrl_sim_tpu/rollout/streaming.py:run_streaming``).
 
 Per env step, for every (scene, group) lane at once:
 
   env reward -> normalize the slots' states in the lane's fixed frame ->
-  pass 1: the t-1 action tokens + the t state tokens (stream_action_state)
-  -> tilted RTG sampling -> pass 2: the t RTG tokens (stream_rtg) -> action
-  sampling -> controlled agents act after the history window, the others
-  replay GT through inverse-bicycle actions -> FreeCar step, collisions.
+  the family's decode passes -> action sampling -> controlled agents act
+  after the history window, the others replay GT through inverse-bicycle
+  actions -> FreeCar step, collisions.
 
-The frame is anchored at the origin agent's pose at episode start, the
-memory (map + initial states) and its cross-attention K/V are computed once
-per episode, and both passes' [Q, N] masks are precomputed for every step
-(ops/masks.py:stream_step_masks). A Python loop over steps takes the place
-of ``lax.scan``; the KV ring cache is updated in place.
+The decode passes of each family (every one writes the previous step's
+action tokens into the cache first; their outputs are unused):
 
-The KV cache is int8 with per-token scales when ``model.kv_cache_dtype``
-is "int8" (kernel K2), else in the compute dtype (kernel K1). Not ported
-yet, and refused: the trajeglish, IL and DT families and the sequential
-3-pass decode (``eval.streaming_passes=3``).
+- CtRL-Sim, fused (``eval.streaming_passes`` < 3): pass 1, the t-1 action
+  tokens + the t state tokens (``stream_action_state``) -> tilted RTG
+  sampling -> pass 2, the t RTG tokens (``stream_rtg``), whose rows feed
+  the action head. Both passes' [Q, N] masks are precomputed for every step
+  (ops/masks.py:stream_step_masks).
+- CtRL-Sim, sequential (``eval.streaming_passes=3``): the t-1 actions, the
+  t states, the t RTGs, each in a pass of its own.
+- DT: one pass of the t-1 actions, the t RTG tokens (the real-time returns,
+  decayed by ``dt_dense_reward3`` after they are embedded) and the t state
+  tokens, whose rows feed the action head;
+- IL: one pass of the t-1 actions and the t states;
+- trajeglish: one pass of the t-1 actions and a zero-action probe at t,
+  whose rows predict this step's action.
+
+The masks of the one-pass families and of the 3-pass decode are built
+each pass from the ring's slot labels (``Decoder._mask``). The frame is anchored at the origin agent's pose at
+episode start, and the memory (map + initial states) and its
+cross-attention K/V are computed once per episode. A Python loop over
+steps takes the place of ``lax.scan``; the KV ring cache is updated in
+place. The cache is int8 with per-token scales when
+``model.kv_cache_dtype`` is "int8" (kernel K2), else in the compute dtype
+(kernel K1).
 """
 
 from __future__ import annotations
@@ -38,7 +51,7 @@ from ctrl_sim_tpu_torch.geometry import angle_sub, apply_se2
 from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
 from ctrl_sim_tpu_torch.rollout.groups import GroupSpec, gather_members, scatter_by_rank
 from ctrl_sim_tpu_torch.rollout.policy import sample_actions, sample_tilted_rtgs
-from ctrl_sim_tpu_torch.rollout.rollout import RolloutOutput, _nearest_dist, default_groups
+from ctrl_sim_tpu_torch.rollout.rollout import RolloutOutput, _nearest_dist, default_groups, dt_dense_reward3
 
 Tensor = torch.Tensor
 
@@ -47,7 +60,8 @@ class PolicySampler:
     """Draws the rollout's RTG bins and action ids with the policy config
     from one ``torch.Generator``. ``run_streaming`` calls
     ``rtgs(t, table_logits [E, A, bins, 3], tilt)`` and
-    ``actions(t, table_logits [E, A, num_actions])``; a test can pass
+    ``actions(t, table_logits [E, A, num_actions])`` (``rtgs`` only where
+    the policy samples returns, ``policy.predict_rtgs``); a test can pass
     another object with these two methods to replay given draws."""
 
     def __init__(self, cfg: Config, generator: torch.Generator):
@@ -96,10 +110,6 @@ def run_streaming(
     the ``PolicySampler`` drawing from ``generator`` (tests replay given
     draws through it)."""
     wc, mc, pc = cfg.waymo, cfg.model, cfg.policy
-    if mc.trajeglish or mc.il or mc.decision_transformer:
-        raise NotImplementedError("only the default CtRL-Sim family is ported")
-    if cfg.eval.streaming_passes != 2:
-        raise NotImplementedError("only the fused 2-pass streaming decode is ported")
     env = WaymoEnv(cfg)
     sampler = sampler if sampler is not None else PolicySampler(cfg, generator)
     steps = cfg.sim.steps
@@ -199,10 +209,31 @@ def run_streaming(
     )
     memory_kv = model.precompute_memory_kv(memory)
     cache = model.new_cache(EG, Am, device=dev)
-    mask1, mask2 = stream_step_masks(
-        steps, window, Am, mc.num_token_types, mc.state_token_index,
-        mc.attend_own_return_action, device=dev,
-    )
+    one_pass = mc.trajeglish or mc.il or mc.decision_transformer
+    fused = not one_pass and cfg.eval.streaming_passes < 3
+    if fused:
+        mask1, mask2 = stream_step_masks(
+            steps, window, Am, mc.num_token_types, mc.state_token_index,
+            mc.attend_own_return_action, device=dev,
+        )
+    # DT's real-time returns (policy_evaluator.py:123-145), decayed each step
+    rtg_rt = torch.tensor([10.0, 90.0, 90.0], device=dev).expand(E, A, 3)
+    if pc.min_return:
+        rtg_rt = torch.where(controlled_mask[..., None], torch.tensor([0.0, -10.0, -10.0], device=dev), rtg_rt)
+    a_ids = torch.arange(Am, device=dev).expand(EG, Am)
+    probe_ids = tf.discretize_actions(torch.zeros((EG, Am, 2), device=dev), wc).long()  # trajeglish
+
+    def sample_rtgs(x_state: Tensor, t: int, exist_g: Tensor, group_alive: Tensor) -> tuple[Tensor, Tensor]:
+        """The t RTG bins of every slot [EG, Am, 3] from the state rows, one
+        tilted draw per agent (the lowest-rank group's logits win), and the
+        continuous RTGs [E, A, 3] of the output."""
+        if not pc.predict_rtgs:
+            return torch.zeros((EG, Am, 3), dtype=torch.long, device=dev), torch.zeros((E, A, 3), device=dev)
+        rtg_logits = model.rtg_head(x_state).reshape(E, G, Am, wc.rtg_discretization, 3)
+        table_logits, covered = scatter_by_rank(rtg_logits, members, exist_g & group_alive[..., None], A)
+        rtg_bins_ag = sampler.rtgs(t, table_logits, agent_tilt)
+        rtg_cont = tf.undiscretize_rtgs(rtg_bins_ag, wc) * covered[..., None]
+        return eg(gather_members(rtg_bins_ag, members)) * eg(exist_g)[..., None].long(), rtg_cont
 
     prev_action_ids = torch.zeros((EG, Am), dtype=torch.long, device=dev)
     prev_exist = torch.zeros((EG, Am), device=dev)
@@ -230,26 +261,46 @@ def run_streaming(
             [p, v, hd[..., None], length_slot[..., None], width_slot[..., None], types_slot], dim=-1
         )
 
-        # pass 1: (t-1 actions + t states); its state rows feed the RTG head
-        x_state, cache = model.stream_action_state(
-            prev_action_ids, prev_exist, states12, n_goals, model_exist, t, cache,
-            memory_valid, memory_kv, mask_override=mask1[t],
-        )
-        rtg_cont = torch.zeros((E, A, 3), device=dev)
-        if pc.predict_rtgs:
-            rtg_logits = model.rtg_head(x_state).reshape(E, G, Am, wc.rtg_discretization, 3)
-            contrib = model_exist_g & group_alive[..., None]
-            table_logits, covered = scatter_by_rank(rtg_logits, members, contrib, A)
-            rtg_bins_ag = sampler.rtgs(t, table_logits, agent_tilt)
-            rtg_cont = tf.undiscretize_rtgs(rtg_bins_ag, wc) * covered[..., None]
-            rtg_bins = eg(gather_members(rtg_bins_ag, members)) * model_exist[..., None].long()
+        if fused:
+            # pass 1: (t-1 actions + t states); its state rows feed the RTG head
+            x_state, cache = model.stream_action_state(
+                prev_action_ids, prev_exist, states12, n_goals, model_exist, t, cache,
+                memory_valid, memory_kv, mask_override=mask1[t],
+            )
+            rtg_bins, rtg_cont = sample_rtgs(x_state, t, model_exist_g, group_alive)
+            # pass 2: the t RTG tokens; their rows feed the action head
+            x_action, cache = model.stream_rtg(
+                rtg_bins, model_exist, t, cache, memory_valid, memory_kv, mask_override=mask2[t]
+            )
+        elif not one_pass:  # the sequential 3-pass decode
+            _, cache = model.stream_prev_action(prev_action_ids, prev_exist, t, cache, memory_valid, memory_kv)
+            x_state, cache = model.stream_state(states12, n_goals, model_exist, t, cache, memory_valid, memory_kv)
+            rtg_bins, rtg_cont = sample_rtgs(x_state, t, model_exist_g, group_alive)
+            x_action, cache = model.stream_rtg(rtg_bins, model_exist, t, cache, memory_valid, memory_kv)
         else:
-            rtg_bins = torch.zeros((EG, Am, 3), dtype=torch.long, device=dev)
-
-        # pass 2: the t RTG tokens; their rows feed the action head
-        x_action, cache = model.stream_rtg(
-            rtg_bins, model_exist, t, cache, memory_valid, memory_kv, mask_override=mask2[t]
-        )
+            # one pass: the t-1 action group, then this step's groups; every
+            # group is written before any attends (DT's rtg token sees the
+            # same step's state token, which comes later in flat order)
+            enc, ex = model.encoder, model_exist[..., None]
+            rtg_cont = torch.zeros((E, A, 3), device=dev)
+            t_ids = torch.full((EG, Am), t, dtype=torch.long, device=dev)
+            t_prev_ids = torch.full((EG, Am), max(t - 1, 0), dtype=torch.long, device=dev)
+            if mc.trajeglish:
+                new = [(enc.embed_action_tokens(probe_ids, t_ids, a_ids, ex), 0)]
+            elif mc.il:
+                new = [(enc.embed_state_tokens(states12, n_goals, t_ids, a_ids, ex), mc.state_token_index)]
+            else:
+                n_rtg3 = tf.normalize_rtgs(eg(gather_members(rtg_rt, members)), wc) * ex
+                new = [(enc.embed_rtg_tokens(n_rtg3, t_ids, a_ids, ex), 0),
+                       (enc.embed_state_tokens(states12, n_goals, t_ids, a_ids, ex), mc.state_token_index)]
+                # the next step's rtg token carries the decayed value (policy_evaluator.py:146-149)
+                rtg_rt = rtg_rt - dt_dense_reward3(cfg, scenario, env_state, reward8)
+            e_prev = enc.embed_action_tokens(prev_action_ids, t_prev_ids, a_ids, prev_exist[..., None])
+            emb = enc.embed_ln(torch.cat([e_prev] + [e for e, _ in new], dim=1))
+            groups_t = [(emb[:, :Am], mc.num_token_types - 1, t - 1)] + [
+                (emb[:, (i + 1) * Am:(i + 2) * Am], k, t) for i, (_, k) in enumerate(new)]
+            x, cache = model.decoder.decode_step_groups(groups_t, cache, memory_valid, window, memory_kv)
+            x_action = x[:, -Am:]  # the last group's rows: the state (DT, IL) or the probe (trajeglish)
         logits = model.action_head(x_action).reshape(E, G, Am, -1)
         contrib = model_exist_g & group_alive[..., None] & groups.group_valid[..., None]
         table_action_logits, act_covered = scatter_by_rank(logits, members, contrib, A)
@@ -268,8 +319,7 @@ def run_streaming(
         accel = torch.where(use_policy, policy_actions[..., 0], gt_accel)
         steer = torch.where(use_policy, policy_actions[..., 1], gt_steer)
 
-        # the applied ids enter each lane's cache at the start of the next
-        # step, fused with its state pass
+        # the applied ids enter each lane's cache at the start of the next step
         applied_ids = tf.discretize_actions(torch.stack([accel, steer], dim=-1), wc).long()
         alive_next = env_state.alive & tv[:, :, t + 1] & (use_policy | replay_valid)
         ys.append((

@@ -17,9 +17,11 @@ Examples:
   # full width on the card, global batch 64 as 16 x 4 accumulation
   python -m ctrl_sim_tpu_torch.train --synthetic 64 --steps 200 -o train.accum_steps=4
 
-Not ported yet, and refused: ``--data_dir`` / ``--val_dir`` (the JSON scene
-loaders), ``--distributed`` (the multi-device learner), presets other than
-``ctrl_sim``.
+``--preset`` picks the model family: ``ctrl_sim`` (the default), ``dt``,
+``il`` or ``trajeglish``, each trained on the CtRL-Sim batch. Not ported
+yet, and refused: ``--preset ctg_plus_plus``, ``--data_dir`` /
+``--val_dir`` (the JSON scene loaders), ``--distributed`` (the
+multi-device learner).
 """
 
 from __future__ import annotations

@@ -145,8 +145,13 @@ class Trainer:
             for micro in _split(batch, accum):
                 losses = compute_loss(cfg, micro, model(micro, deterministic=False, generator=generator))
                 (losses.total / accum).backward()
-            params = [p for p in model.parameters() if p.grad is not None]
-            state.grad_norm = clip_by_global_norm([p.grad for p in params], cfg.train.gradient_clip_val)
+            # a parameter the family's layout leaves unused (IL's and
+            # trajeglish's RTG embeddings) gets a zero gradient, so AdamW
+            # decays it as optax does instead of skipping it
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state.grad_norm = clip_by_global_norm([p.grad for p in model.parameters()], cfg.train.gradient_clip_val)
             for group in opt.param_groups:
                 group["lr"] = schedule(state.step)
             opt.step()

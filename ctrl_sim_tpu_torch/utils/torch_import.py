@@ -4,7 +4,9 @@ keys as in the reference's models/ctrl_sim.py: ``encoder.*`` and
 ``params.from_flax_params`` turns into the port's ``state_dict``.
 
 The port's own copy of the CtRL-Sim part of
-``ctrl_sim_tpu/utils/torch_import.py``, numpy only. Mapping:
+``ctrl_sim_tpu/utils/torch_import.py``, numpy only, for each family that
+shares its backbone (CtRL-Sim, DT, IL, trajeglish; DT embeds its returns
+with Linear layers, the others with embeddings). Mapping:
 
   Linear weight [out, in]          -> kernel [in, out] (transposed)
   LayerNorm weight/bias            -> scale/bias
@@ -99,12 +101,11 @@ class _W:
 
 def params_from_torch_state(state: Mapping[str, np.ndarray], cfg: Config) -> dict:
     """The JAX model's param tree (``{"params": {"encoder", "decoder"}}``,
-    numpy leaves) for CtRL-Sim from a reference state dict. A tensor the
-    mapping does not consume raises."""
+    numpy leaves) for CtRL-Sim, DT, IL or trajeglish from a reference state
+    dict. A tensor the mapping does not consume raises."""
     mc = cfg.model
-    if mc.decision_transformer or mc.il or mc.trajeglish:
-        raise NotImplementedError("only the default CtRL-Sim family is ported")
     w = _W(state)
+    rtg = w.linear if mc.decision_transformer else w.embed
     enc = {
         "embed_state": w.mlp("encoder.embed_state"),
         "embed_goal": w.mlp("encoder.embed_goal"),
@@ -114,9 +115,9 @@ def params_from_torch_state(state: Mapping[str, np.ndarray], cfg: Config) -> dic
         "embed_timestep": w.embed("encoder.embed_timestep"),
         "embed_agent_id": w.embed("encoder.embed_agent_id"),
         "embed_ln": w.lnorm("encoder.embed_ln"),
-        "embed_rtg_goal": w.embed("encoder.embed_rtg_goal"),
-        "embed_rtg_veh": w.embed("encoder.embed_rtg_veh"),
-        "embed_rtg_road": w.embed("encoder.embed_rtg_road"),
+        "embed_rtg_goal": rtg("encoder.embed_rtg_goal"),
+        "embed_rtg_veh": rtg("encoder.embed_rtg_veh"),
+        "embed_rtg_road": rtg("encoder.embed_rtg_road"),
     }
     if mc.use_map:
         enc["map_encoder"] = {

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 K1 (decode attention), K2 (decode attention over the int8 cache) and K3/K4
 (training flash attention), each in bf16 (tensor cores) and f32 (CUDA
-cores); and the env step with contacts on, which must never wait on a
-value from the card.
+cores), at the shapes and under the masks of every model family's decode
+passes and training layout; and the env step with contacts on, which must
+never wait on a value from the card.
 
 Marked ``cuda``: they skip without a CUDA device (here, and in any CPU run),
 and run on the card with
@@ -15,11 +16,12 @@ This file imports nothing of JAX, so it also runs where JAX is absent.
 import pytest
 import torch
 
-from ctrl_sim_tpu_torch.config import load_config
+from ctrl_sim_tpu_torch.config import load_config, preset
 from ctrl_sim_tpu_torch.data import stack_scenarios, synthetic_scenario, to_torch
 from ctrl_sim_tpu_torch.env.env import WaymoEnv
 from ctrl_sim_tpu_torch.ops import attention, flash_attention
 from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
+from ctrl_sim_tpu_torch.rollout.setup import decode_masks
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +39,9 @@ def cuda():
     "B,Q,N,H,heads",
     [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4),
      # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
-     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2)],
+     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2),
+     # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
+     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8)],
 )
 def test_decode_attention_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N)
@@ -98,7 +102,9 @@ def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
     "B,Q,N,H,heads",
     [(8, 32, 1536, 256, 8), (8, 16, 1536, 256, 8), (4, 12, 384, 64, 4), (3, 40, 100, 128, 2), (2, 5, 33, 64, 4),
      # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
-     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2)],
+     (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2),
+     # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
+     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8)],
 )
 def test_decode_attention_q8_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N + 1)
@@ -169,6 +175,35 @@ def test_decode_kernels_on_early_rollout_masks(cuda, int8):
             torch.testing.assert_close(got[:, rows], want[:, rows], atol=2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", ["3-pass", "dt", "il", "trajeglish"])
+def test_decode_kernels_on_family_masks(cuda, case, int8):
+    """K1 and K2 under the masks that each family's full-width rollout
+    (and the 3-pass decode's) gives its decode passes (DT 48 rows over 1536
+    keys, IL 32 over 1024, trajeglish 32 over 512, the 3-pass decode 16
+    over 1536) at steps 0, 1, 31, 32 and 45; at t = 0 the t = -1 action
+    rows see no key, and a pass with no row that sees one is compared on
+    every row (both versions give such a row the uniform average of V)."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case) + int8)
+    masks = decode_masks(case, 46, cuda)
+    for t in (0, 1, 31, 32, 45):
+        for mask in masks[t]:
+            Q, N = mask.shape
+            q = torch.randn((4, Q, 256), generator=gen, device=cuda).bfloat16()
+            if int8:
+                _, k, v, ks, vs = _q8_inputs(gen, cuda, 4, 1, N, 256, torch.bfloat16)
+                got = attention.cached_decode_attention_q8(q, k, v, ks, vs, mask, 8).float()
+                want = attention.cached_decode_attention_q8_reference(q, k, v, ks, vs, mask, 8).float()
+            else:
+                k, v = (torch.randn((4, N, 256), generator=gen, device=cuda).bfloat16() for _ in range(2))
+                got = attention.cached_decode_attention(q, k, v, mask, 8).float()
+                want = attention.cached_decode_attention_reference(q, k, v, mask, 8).float()
+            rows = (mask != 0).any(dim=1)
+            rows = rows if rows.any() else ~rows
+            assert torch.isfinite(got).all(), (case, t)
+            torch.testing.assert_close(got[:, rows], want[:, rows], atol=2e-2, rtol=0)
+
+
 def _device_kernel_names(fn) -> str:
     """The names of the device kernels that ``fn`` launches, from the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -227,10 +262,37 @@ def test_flash_attention_kernels_match_plain(cuda, dropout_p, dtype, atol, gtol,
 
 
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,atol,gtol", [(torch.bfloat16, 2e-2, 5e-2), (torch.float32, 1e-4, 1e-4)])
+@pytest.mark.parametrize(
+    "B,steps,A,K,state_index,heads,d,own,window",
+    [
+        (2, 8, 24, 3, 1, 8, 32, False, None),  # DT's layout: the state token second
+        (2, 5, 23, 3, 1, 8, 32, True, None),  # DT, ragged last tile, strict mode
+        (2, 6, 4, 2, 1, 4, 16, False, 3),  # 2-token layout, state token second, window
+        (2, 8, 24, 1, 0, 8, 32, False, None),  # trajeglish: one token type
+        (2, 16, 24, 2, 0, 8, 32, False, None),  # IL
+    ],
+)
+def test_flash_attention_kernels_family_layouts(cuda, dropout_p, dtype, atol, gtol, B, steps, A, K, state_index,
+                                               heads, d, own, window):
+    _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol, state_index)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
 def test_flash_attention_bf16_at_train_length(cuda, dropout_p):
     """The bf16 tensor-core kernels at the train step's T = 32 x 24 x 3 =
     2304 (36 tiles of 64, partial tiles on every query tile's diagonal)."""
     _check_flash(cuda, 2, 32, 24, 3, 8, 32, False, None, torch.bfloat16, dropout_p, 2e-2, 5e-2)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("family", ["dt", "il", "trajeglish"])
+def test_flash_attention_bf16_at_family_train_lengths(cuda, family, dropout_p):
+    """The bf16 tensor-core kernels at each family's train-step length:
+    T = 32 x 24 x K = 2304 (DT, state index 1), 1536 (IL), 768 (trajeglish)."""
+    mc = preset(family).model
+    _check_flash(cuda, 2, 32, 24, mc.num_token_types, 8, 32, False, None, torch.bfloat16, dropout_p, 2e-2, 5e-2,
+                 mc.state_token_index)
 
 
 def test_flash_attention_dispatches_by_dtype(cuda):
@@ -253,8 +315,8 @@ def test_flash_attention_dispatches_by_dtype(cuda):
         assert (a - b).abs().max().item() <= 5e-2 * max(1.0, a.abs().max().item())
 
 
-def _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol):
-    spec = flash_attention.MaskSpec(A, K, 0, own, window)
+def _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol, state_index=0):
+    spec = flash_attention.MaskSpec(A, K, state_index, own, window)
     q, k, v, do = _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, steps * A + d)
     seed = torch.tensor([1234567], device=cuda)
     f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches

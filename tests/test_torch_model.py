@@ -70,6 +70,17 @@ def test_params_map_every_leaf_and_init_is_seeded(setup):
 
 
 def test_model_refuses_unported_options():
+    """The DT, IL and trajeglish layouts, refused until they were ported,
+    build: the port's parameters are the JAX model's param tree, name for
+    name and shape for shape. The CTG++ family stays refused."""
+    from ctrl_sim_tpu.models.ctrl_sim import CtRLSim as JaxCtRLSim
+    from torch_port_common import init_batch
+
     for over in ({"model.il": True}, {"model.decision_transformer": True}, {"model.trajeglish": True}):
-        with pytest.raises(NotImplementedError):
-            TorchCtRLSim(configs(**over)[1], device="cpu")
+        jcfg, tcfg = configs(**over)
+        tree = jax.eval_shape(lambda: JaxCtRLSim(jcfg).init({"params": jax.random.PRNGKey(0)}, init_batch(jcfg)))
+        want = from_flax_params(jax.tree.map(lambda x: np.zeros(x.shape, np.float32), tree))
+        got = TorchCtRLSim(tcfg, device="cpu").state_dict()
+        assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}, over
+    with pytest.raises(NotImplementedError):
+        TorchCtRLSim(configs(**{"model.ctg_plus_plus": True})[1], device="cpu")

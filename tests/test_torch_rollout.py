@@ -24,6 +24,8 @@ from ctrl_sim_tpu_torch.rollout import policy as tpolicy
 from ctrl_sim_tpu_torch.rollout.groups import gather_members, scatter_by_rank
 from ctrl_sim_tpu_torch.env.env import WaymoEnv as TorchEnv
 from ctrl_sim_tpu_torch.rollout.rollout import default_groups, dt_dense_reward3
+from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+from ctrl_sim_tpu_torch.params import init_params
 from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
 from torch_port_common import configs, jax_scenario, models, scenes, t2n, torch_scenario
 
@@ -131,10 +133,27 @@ def test_rollout_own_sampler_is_finite_and_seeded(setup):
      {"model.il": True, "model.kv_cache_dtype": "int8"}],
 )
 def test_rollout_refuses_unported_paths(setup, over):
-    _, tcfg0, sb, tm, controlled, *_ = setup
+    """These paths (IL, trajeglish, the 3-pass decode, IL over the int8
+    cache) were refused until they were ported; each now rolls out with a
+    model of its own layout and random weights, finite and seeded, and
+    what stays unported, the CTG++ family, is refused by the model.
+    (``tests/test_torch_families_rollout.py`` holds them to the JAX
+    rollout.)"""
+    _, _, sb, _, controlled, tilt, _ = setup
     _, tcfg = configs(**over)
+    model = CtRLSim(tcfg, device="cpu")
+    init_params(model, torch.Generator().manual_seed(0))
+    ts, ctrl = torch_scenario(sb), torch.as_tensor(controlled)
+    a, b = (run_streaming(tcfg, model, ts, ctrl, torch.Generator().manual_seed(3), torch.as_tensor(tilt))
+            for _ in range(2))
+    for name, x in a._asdict().items():
+        assert torch.isfinite(x.float()).all(), name
+        assert torch.equal(x, getattr(b, name)), name
+    assert a.position.shape == (tcfg.sim.steps + 1,) + tuple(ts.traj_position.shape[:2]) + (2,)
+    mc = tcfg.model
+    assert (a.rtgs != 0).any() == (not (mc.il or mc.trajeglish))  # only the default family samples returns
     with pytest.raises(NotImplementedError):
-        run_streaming(tcfg, tm, torch_scenario(sb), torch.as_tensor(controlled), torch.Generator())
+        CtRLSim(configs(**{"model.ctg_plus_plus": True})[1], device="cpu")
 
 
 def _chi2_ok(draws, probs, n_cat):

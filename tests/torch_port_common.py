@@ -50,6 +50,18 @@ def configs(**extra):
     return jax_load_config(over), torch_load_config(over)
 
 
+def family_configs(family: str, **extra):
+    """The preset of a model family ("ctrl_sim", "dt", "il", "trajeglish")
+    with the toy overrides, from the JAX package and from the port."""
+    from ctrl_sim_tpu.config import _set_dotted as jax_set, preset as jax_preset
+    from ctrl_sim_tpu_torch.config import _set_dotted as torch_set, preset as torch_preset
+
+    jcfg, tcfg = jax_preset(family), torch_preset(family)
+    for key, value in {**TOY, **extra}.items():
+        jcfg, tcfg = jax_set(jcfg, key, value), torch_set(tcfg, key, value)
+    return jcfg, tcfg
+
+
 def scenes(cfg, num_scenes: int = 4, num_agents: int = 8, seed0: int = 0):
     """Stacked numpy scenes from the JAX package's generator (the port's
     copy is held equal to it in test_torch_env.py)."""
@@ -234,32 +246,62 @@ def torch_stream(tcfg, tm, d: dict, premask: bool = False) -> dict:
 
 
 class ReplaySampler:
-    """Hands out given RTG bins [T, E, A, 3] and action ids [T, E, A]."""
+    """Hands out given RTG bins [T, E, A, 3] (None: the policy samples no
+    returns, and a call fails) and action ids [T, E, A], and keeps the
+    logits it is given ([E, A, bins, 3] and [E, A, actions] a step)."""
 
     def __init__(self, rtg_bins, action_ids):
         self.rtg_bins, self.action_ids = rtg_bins, action_ids
+        self.rtg_logits, self.action_logits = [], []
 
     def rtgs(self, t, logits, tilt):
+        assert self.rtg_bins is not None, "this policy samples no returns"
         assert torch.isfinite(logits.float()).all()
+        self.rtg_logits.append(t2n(logits.float()))
         return self.rtg_bins[t]
 
     def actions(self, t, logits):
         assert torch.isfinite(logits.float()).all()
+        self.action_logits.append(t2n(logits.float()))
         return self.action_ids[t]
 
 
-def replay_jax_rollout(jcfg, tcfg, sb, tm, params, jm, seed: int = 1):
+def replay_jax_rollout(jcfg, tcfg, sb, tm, params, jm, seed: int = 1, logits: dict | None = None):
     """The JAX ``run_streaming`` and the port's under its draws (recovered
-    from its RTGs and controls), both from the same scenes and weights."""
+    from its RTGs, where the policy samples them, and its controls), both
+    from the same scenes and weights. With a ``logits`` dict, the logits
+    each side draws from at every step go into it: the JAX side's under
+    "jax_actions" / "jax_rtgs" (recorded by a host callback around its
+    samplers), the port's under "actions" / "rtgs"."""
+    from unittest import mock
+
+    from ctrl_sim_tpu.rollout import streaming as jax_streaming
+
     controlled = sb.moving & sb.agent_valid
     tilt = jnp.asarray(np.random.default_rng(0).normal(size=(350, 3)).astype(np.float32))
-    ro = jax.jit(lambda s, p, c, r, tl: jax_run_streaming(jcfg, jm, p, s, c, r, tl))(
-        jax_scenario(sb), params, jnp.asarray(controlled), jax.random.PRNGKey(seed), tilt)
-    ro = jax.tree.map(np.array, ro)
+    recorded = {"jax_actions": [], "jax_rtgs": []}
+
+    def recording(sampler, key):
+        def draw(rng, table_logits, *args):
+            jax.debug.callback(lambda x: recorded[key].append(np.asarray(x)), table_logits, ordered=True)
+            return sampler(rng, table_logits, *args)
+        return draw
+
+    with mock.patch.object(jax_streaming, "sample_actions", recording(jax_streaming.sample_actions, "jax_actions")), \
+            mock.patch.object(jax_streaming, "sample_tilted_rtgs",
+                              recording(jax_streaming.sample_tilted_rtgs, "jax_rtgs")):
+        ro = jax.jit(lambda s, p, c, r, tl: jax_run_streaming(jcfg, jm, p, s, c, r, tl))(
+            jax_scenario(sb), params, jnp.asarray(controlled), jax.random.PRNGKey(seed), tilt)
+        ro = jax.tree.map(np.array, ro)
     wc = tcfg.waymo
-    rtg_bins = ttf.discretize_rtgs(ttf.normalize_rtgs(torch.as_tensor(ro.rtgs), wc), wc).long()
+    rtg_bins = None
+    if tcfg.policy.predict_rtgs:
+        rtg_bins = ttf.discretize_rtgs(ttf.normalize_rtgs(torch.as_tensor(ro.rtgs), wc), wc).long()
     action_ids = ttf.discretize_actions(
         torch.stack([torch.as_tensor(ro.acceleration), torch.as_tensor(ro.steering)], -1), wc).long()
+    sampler = ReplaySampler(rtg_bins, action_ids)
     out = run_streaming(tcfg, tm, torch_scenario(sb), torch.as_tensor(controlled), torch.Generator(),
-                        torch.tensor(np.asarray(tilt)), sampler=ReplaySampler(rtg_bins, action_ids))
+                        torch.tensor(np.asarray(tilt)), sampler=sampler)
+    if logits is not None:
+        logits.update(recorded, actions=sampler.action_logits, rtgs=sampler.rtg_logits)
     return ro, out
