@@ -86,15 +86,45 @@ code is 0 only when every phase passed:
    batch 64 as 16 x 4 accumulation; every loss and the gradient norm
    finite, and exactly 4 layers x 4 microbatches = 16 K3 and 16 K4
    launches per step; families-train: 3 such steps of DT, IL and
-   trajeglish on the same store, with the same checks.
+   trajeglish on the same store, with the same checks;
+10. the exact rollout and the evaluators. eval-small-agreement:
+   ``run_closed_loop`` at a toy width (f32, contacts on) on the card
+   against the same rollout on the CPU under its replayed draws, for
+   CtRL-Sim, DT and a scene of 20 agents in two or more focal groups
+   (tolerances of small-agreement); eval-exact: ``PolicyEvaluator`` in
+   multi_agent mode at full width (the default model, seeded weights,
+   bf16, contacts on) on one chunk of the 32 synthetic scenes of 12 agents
+   that ``eval_sim --synthetic 32`` evaluates, 90 steps
+   (``rollout/setup.py:exact_eval_setup``; 3-6 focal groups a scene, the
+   chunk padded to the most): K3 launched exactly 2 passes x 4 layers x 90
+   steps = 720 times, K4, K1 and K2 never, the tile table built at most
+   once, every metric finite, rates in [0, 1], JSDs at most sqrt(ln 2);
+   its wall seconds, peak memory and focal groups a scene; then K3 at that
+   decode shape (B = scenes x groups, T = 2304, dropout 0, forward only),
+   and at B = 32 (one group a scene), against its plain version within
+   2e-2, timed beside its bound and SDPA, and a launch under
+   ``torch.inference_mode`` that keeps nothing for a backward;
+   eval-multigroup: 8 scenes of 40 agents (G >= 2 focal groups),
+   and the same chunk padded to G + 1 under the same draws, with equal
+   metrics, and K3 at its B = 8 G the same way; eval-streaming: the
+   eval-exact scenes through the streaming rollout (episode-start frames,
+   16 slots; K1 720 times); eval-planner:
+   ``PlannerAdversaryEvaluator`` on 8 scenes with crossing pairs, exact,
+   per-agent tilts, one adversary replaying a CAT attack path; finetune: 3 full-width train
+   steps on a ``FinetuningStore`` of the training store and 16 CAT scenes
+   (16 K3 and 16 K4 launches a step, losses finite).
 
 Then one line ``{"kernels": [...]}``, each kernel's row with its times
-at the other families' shapes under ``family_shapes``, and, last, the
+at the other families' shapes under ``family_shapes`` and K3's at the
+exact rollout's under ``exact_eval_shape`` (B = the eval-exact chunk's
+scenes x groups), ``exact_eval_one_group_shape`` (B = 32) and
+``multigroup_eval_shape`` (B = 8 G), and, last, the
 device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -111,6 +141,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet, dense rates belo
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 outside them
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # of max |grad|
+PLAIN_LANES = 32  # lanes a call of K3's plain version at the exact rollout's shape (5.4 GB of fp32 scores)
 IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators, 64-row tiles, cp.async "
                   "ring, mask only on partial tiles; f32: CUDA cores")
 DECODE_IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators; a warp per (lane, head, "
@@ -443,7 +474,6 @@ def _golden_full() -> str:
 
     from ctrl_sim_tpu_torch.config import load_config
     from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
-    from ctrl_sim_tpu_torch.ops import flash_attention as fa
     from ctrl_sim_tpu_torch.params import from_flax_params
     from ctrl_sim_tpu_torch.utils.torch_import import golden_batch, golden_state, params_from_torch_state
 
@@ -458,15 +488,12 @@ def _golden_full() -> str:
         model = CtRLSim(cfg)
         model.load_state_dict(from_flax_params(params_from_torch_state(state, cfg)), strict=True)
         model.eval()
-        f0 = fa.flash_mha_fwd.launches
+        _zero_counts()
         with torch.no_grad():
             out = model(batch)
         torch.cuda.synchronize()
-        launched = fa.flash_mha_fwd.launches - f0
-        expected = cfg.model.num_decoder_layers if flash else 0
-        if launched != expected:
-            raise AssertionError(f"golden forward {dtype} flash={flash}: K3 launched {launched} times, "
-                                 f"expected {expected}")
+        _expect_counts(f"golden forward {dtype} flash={flash}",
+                       (cfg.model.num_decoder_layers if flash else 0, 0, 0, 0))
         got = {n: getattr(out, n).float() for n in names}
         if not all(torch.isfinite(x).all() for x in got.values()):
             raise AssertionError(f"golden forward {dtype} flash={flash}: non-finite outputs")
@@ -496,7 +523,6 @@ def _golden_families() -> str:
 
     from ctrl_sim_tpu_torch.config import load_config
     from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
-    from ctrl_sim_tpu_torch.ops import flash_attention as fa
     from ctrl_sim_tpu_torch.params import from_flax_params
     from ctrl_sim_tpu_torch.utils.torch_import import golden_batch, golden_state, params_from_torch_state
 
@@ -509,13 +535,11 @@ def _golden_families() -> str:
         model.eval()
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in golden_batch(g, family).items()}
         want = torch.as_tensor(g[f"{family}_out_action_preds"], device="cuda")
-        fa.flash_mha_fwd.launches = 0
+        _zero_counts()
         with torch.no_grad():
             out = model(batch)
         torch.cuda.synchronize()
-        if fa.flash_mha_fwd.launches != cfg.model.num_decoder_layers:
-            raise AssertionError(f"golden {family}: K3 launched {fa.flash_mha_fwd.launches} times, expected "
-                                 f"{cfg.model.num_decoder_layers}")
+        _expect_counts(f"golden {family}", (cfg.model.num_decoder_layers, 0, 0, 0))
         if out.rtg_preds is not None or out.state_preds is not None:
             raise AssertionError(f"golden {family}: the family has no RTG or future-state head")
         got = out.action_preds.float()
@@ -559,31 +583,41 @@ class _ReplaySampler:
         return self.act[t]
 
 
-def _small_agreement(family: str = "ctrl_sim", extra: dict | None = None) -> str:
+def _small_agreement(family: str = "ctrl_sim", extra: dict | None = None, exact: bool = False,
+                     groups: bool = False) -> str:
     """The toy-width rollout (contacts on) of a model family (with
     ``extra`` overrides) on the card against the same rollout on the CPU
-    (plain kernels), with the CPU run's draws replayed on the card."""
+    (plain kernels), with the CPU run's draws replayed on the card: the
+    streaming rollout in 8 packed slots, or with ``exact`` the exact
+    rollout ``run_closed_loop``; ``groups``: 20 agents a scene over the
+    12-slot crop, in two or more focal groups."""
+    import numpy as np
     import torch
 
     from ctrl_sim_tpu_torch.config import _set_dotted, preset
     from ctrl_sim_tpu_torch.data import stack_scenarios, synthetic_scenario, to_torch
     from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
     from ctrl_sim_tpu_torch.params import init_params
-    from ctrl_sim_tpu_torch.rollout.streaming import PolicySampler, run_streaming
+    from ctrl_sim_tpu_torch.rollout.groups import build_focal_groups
+    from ctrl_sim_tpu_torch.rollout.policy import PolicySampler
+    from ctrl_sim_tpu_torch.rollout.rollout import run_closed_loop
+    from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
 
+    agents = 20 if groups else 8
     cfg = preset(family)
     for key, value in {
         "model.hidden_dim": 64, "model.num_heads": 4, "model.dim_feedforward": 128,
         "model.num_transformer_encoder_layers": 1, "model.num_decoder_layers": 2,
-        "model.compute_dtype": "float32", "waymo.max_num_agents": 12, "sim.max_agents": 12,
-        "eval.agent_slots": 8, "waymo.train_context_length": 8, "sim.steps": 16,
+        "model.compute_dtype": "float32", "waymo.max_num_agents": 12, "sim.max_agents": max(agents, 12),
+        "eval.agent_slots": 0 if exact else 8, "waymo.train_context_length": 8, "sim.steps": 16,
         "sim.history_steps": 4, **(extra or {}),
     }.items():
         cfg = _set_dotted(cfg, key, value)
     scenes = stack_scenarios(
-        [synthetic_scenario(cfg, seed=SEED + s, num_agents=8, arena_half=60.0, num_lanes=2)
+        [synthetic_scenario(cfg, seed=SEED + s, num_agents=agents, arena_half=60.0, num_lanes=2)
          for s in range(4)], cfg)
-    runs = {}
+    controlled = scenes.moving & scenes.agent_valid
+    runs, G = {}, 1
     for device in ("cpu", "cuda"):
         model = CtRLSim(cfg, device=device)
         init_params(model, torch.Generator().manual_seed(SEED))
@@ -592,7 +626,16 @@ def _small_agreement(family: str = "ctrl_sim", extra: dict | None = None) -> str
             sampler = _RecordingSampler(PolicySampler(cfg, torch.Generator().manual_seed(SEED)))
         else:
             sampler = _ReplaySampler(runs["cpu"][1].rtg, runs["cpu"][1].act, device)
-        out = run_streaming(cfg, model, sc, sc.moving & sc.agent_valid, None, sampler=sampler)
+        spec = None
+        if groups:
+            spec = build_focal_groups(cfg, scenes.traj_position, scenes.traj_valid.astype(bool),
+                                      scenes.agent_valid.astype(bool), controlled, device=device)
+            G = spec.num_groups
+            if G < 2:
+                raise AssertionError(f"expected two or more focal groups a scene, got {G}")
+        rollout = run_closed_loop if exact else run_streaming
+        out = rollout(cfg, model, sc, torch.as_tensor(np.asarray(controlled), device=device), None,
+                      groups=spec, sampler=sampler)
         runs[device] = (out, sampler)
     (cpu, cs), (gpu, gs) = runs["cpu"], runs["cuda"]
     logit_err = max((a - b).abs().max().item() for a, b in zip(cs.logits, gs.logits))
@@ -602,6 +645,8 @@ def _small_agreement(family: str = "ctrl_sim", extra: dict | None = None) -> str
         raise AssertionError(
             f"card and CPU rollouts disagree: logits {logit_err}, positions {pos_err}, reward8 {rew_err}")
     label = f"{family} {extra}" if extra else family
+    if groups:
+        label += f", {G} groups"
     return (f"{label}: max |d action logits| {logit_err:.3g}, |d position| {pos_err:.3g}, "
             f"|d reward8| {rew_err:.3g}")
 
@@ -629,7 +674,6 @@ def _train_small_agreement() -> str:
     from ctrl_sim_tpu_torch.data import synthetic_scenario
     from ctrl_sim_tpu_torch.data.store import ScenarioStore
     from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
-    from ctrl_sim_tpu_torch.ops import flash_attention as fa
     from ctrl_sim_tpu_torch.params import init_params
     from ctrl_sim_tpu_torch.training import Trainer
 
@@ -644,17 +688,19 @@ def _train_small_agreement() -> str:
         init_params(model, torch.Generator().manual_seed(SEED))
         trainer = Trainer(cfg, device=device)
         state = trainer.state_from_model(model, step=cfg.train.warmup_steps)
-        f0, b0 = fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches
+        _zero_counts()
         state, losses = trainer.make_train_step()(
             state, {k: v.to(device) for k, v in batch.items()}, torch.Generator(device=device).manual_seed(SEED))
-        launched = (fa.flash_mha_fwd.launches - f0, fa.flash_mha_bwd.launches - b0)
+        torch.cuda.synchronize()
+        launched = _counts()[:2]
         grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
         params = {n: p.detach().cpu() for n, p in model.named_parameters()}
         runs[device] = (losses, grads, params, launched)
-    (lc, gc, pc, _), (lg, gg, pg, launched) = runs["cpu"], runs["cuda"]
+    (lc, gc, pc, cpu_launched), (lg, gg, pg, launched) = runs["cpu"], runs["cuda"]
     expected = cfg.model.num_decoder_layers * cfg.train.accum_steps
-    if launched != (expected, expected):
-        raise AssertionError(f"toy train step launched K3/K4 {launched} times, expected {expected} each")
+    if cpu_launched != (0, 0) or launched != (expected, expected):
+        raise AssertionError(f"toy train step launched K3/K4 {launched} times on the card and {cpu_launched} on "
+                             f"the CPU, expected {expected} each and none")
     loss_err = max(abs(float(a) - float(b)) for a, b in zip(lc, lg))
     gmax = max(g.abs().max().item() for g in gc.values())
     grad_err = max((gc[n] - gg[n]).abs().max().item() for n in gc) / gmax
@@ -670,7 +716,6 @@ def _train_full(t_phase: float) -> dict:
     """The full-width training step (section 8 of the docstring)."""
     import torch
 
-    from ctrl_sim_tpu_torch.ops import flash_attention as fa
     from ctrl_sim_tpu_torch.profile_train import SCENES, full_width_setup
 
     cfg, store, state, train_step, data_gen, dropout_gen, replay_s = full_width_setup(SEED)
@@ -678,9 +723,8 @@ def _train_full(t_phase: float) -> dict:
     batch_ms, step_ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_mha_fwd.launches = fa.flash_mha_bwd.launches = 0
     for i in range(TRAIN_STEPS):
-        f0, b0 = fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches
+        _zero_counts()
         t0 = time.perf_counter()
         batch = store.sample_batch(data_gen, cfg.train.global_batch_size)
         torch.cuda.synchronize()
@@ -690,15 +734,13 @@ def _train_full(t_phase: float) -> dict:
         t2 = time.perf_counter()
         batch_ms.append((t1 - t0) * 1e3)
         step_ms.append((t2 - t1) * 1e3)
-        launched = (fa.flash_mha_fwd.launches - f0, fa.flash_mha_bwd.launches - b0)
-        if launched != (per_step, per_step):
-            raise AssertionError(f"train step {i} launched K3/K4 {launched} times, expected {per_step} each")
+        _expect_counts(f"train step {i}", (per_step, per_step, 0, 0))
         values = [float(x) for x in losses] + [float(state.grad_norm)]
         if not all(map(math.isfinite, values)):
             raise AssertionError(f"train step {i}: non-finite loss or gradient norm {values}")
         print(f"  step {i + 1}: loss {values[0]:.4f} (actions {values[1]:.4f}, state {values[5]:.4f}), "
               f"grad norm {values[6]:.4f}, batch {batch_ms[-1]:.1f} ms, step {step_ms[-1]:.1f} ms", flush=True)
-    launches = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches)
+    launches = (TRAIN_STEPS * per_step, TRAIN_STEPS * per_step)  # each step's counts held above
     peak = torch.cuda.max_memory_allocated()
     _phase("train", t_phase,
            f"{TRAIN_STEPS} steps of global batch {cfg.train.global_batch_size} = {cfg.train.accum_steps} x "
@@ -717,7 +759,6 @@ def _train_families(store) -> dict:
     launched 4 layers x 4 microbatches = 16 times each per step."""
     import torch
 
-    from ctrl_sim_tpu_torch.ops import flash_attention as fa
     from ctrl_sim_tpu_torch.profile_train import full_width_setup
 
     rows = {}
@@ -727,7 +768,7 @@ def _train_families(store) -> dict:
         step_ms = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_mha_fwd.launches = fa.flash_mha_bwd.launches = 0
+        _zero_counts()
         for i in range(FAMILY_TRAIN_STEPS):
             batch = store.sample_batch(data_gen, cfg.train.global_batch_size)
             torch.cuda.synchronize()
@@ -738,11 +779,9 @@ def _train_families(store) -> dict:
             values = [float(x) for x in losses] + [float(state.grad_norm)]
             if not all(map(math.isfinite, values)) or values[0] <= 0:
                 raise AssertionError(f"{family} train step {i}: non-finite or zero loss or gradient norm {values}")
-        launches = (fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches)
         expected = FAMILY_TRAIN_STEPS * per_step
-        if launches != (expected, expected):
-            raise AssertionError(f"{family}: {FAMILY_TRAIN_STEPS} train steps launched K3/K4 {launches} times, "
-                                 f"expected {expected} each")
+        _expect_counts(f"{family}: {FAMILY_TRAIN_STEPS} train steps", (expected, expected, 0, 0))
+        launches = (expected, expected)
         T = cfg.waymo.train_context_length * cfg.waymo.max_num_agents * cfg.model.num_token_types
         rows[family] = {"T": T, "launches_per_step": launches[0] // FAMILY_TRAIN_STEPS, "step_ms": step_ms,
                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": values[0]}
@@ -752,6 +791,289 @@ def _train_families(store) -> dict:
         del state, train_step
         torch.cuda.empty_cache()
     return rows
+
+
+def _counts() -> tuple[int, int, int, int]:
+    """Launches of K3, K4, K1 and K2 so far."""
+    from ctrl_sim_tpu_torch.ops import attention
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_mha_fwd.launches, fa.flash_mha_bwd.launches, attention.cached_decode_attention.launches,
+            attention.cached_decode_attention_q8.launches)
+
+
+def _zero_counts() -> None:
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import attention
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.flash_mha_fwd.launches = fa.flash_mha_bwd.launches = 0
+    attention.cached_decode_attention.launches = attention.cached_decode_attention_q8.launches = 0
+
+
+def _expect_counts(phase: str, expected: tuple[int, int, int, int]) -> None:
+    got = _counts()
+    if got != expected:
+        raise AssertionError(f"{phase}: (K3, K4, K1, K2) launched {got} times on the main path, expected {expected}")
+
+
+def _check_metrics(phase: str, metrics: dict, rates: tuple[str, ...]) -> None:
+    """Every metric finite, rates in [0, 1], JSDs in [0, sqrt(ln 2)]."""
+    if not metrics:
+        raise AssertionError(f"{phase}: no metrics (no scene had a vehicle to evaluate)")
+    for k, v in metrics.items():
+        ok = math.isfinite(v)
+        if k in rates:
+            ok = ok and 0.0 <= v <= 1.0
+        if k.endswith("_jsd"):
+            ok = ok and 0.0 <= v <= math.sqrt(math.log(2)) + 1e-12
+        if not ok:
+            raise AssertionError(f"{phase}: metric {k} = {v} out of its range")
+
+
+POLICY_RATES = ("goal", "collision_rate", "offroad_rate")
+PLANNER_RATES = ("ego_goal", "ego_cr", "ego_cr_w_adv", "ego_or")
+
+
+def _flash_eval_shape(gen, B: int) -> dict:
+    """K3 at the exact rollout's decode shape (B lanes, T = 32 x 24 x 3,
+    H = 256 = 8 x 32, bf16, dropout 0, forward only) against the plain
+    version, timed beside its bound and SDPA; and a launch through
+    ``flash_mha`` under ``torch.inference_mode`` leaves nothing allocated
+    but its output. The plain version materializes [B, 8, T, T] fp32
+    scores, so it runs on ``PLAIN_LANES`` lanes at a time (its time is that
+    of all the slices)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    spec, heads, d = fa.MaskSpec(24, 3, 0, False, None), 8, 32
+    q, k, v, _ = _flash_inputs(B, 32, 24, 3, heads, d, torch.bfloat16, gen)
+    T = q.shape[1]
+    with torch.inference_mode():
+        out, lse = fa.flash_mha_fwd(q, k, v, spec, heads)
+        slices = [slice(i, i + PLAIN_LANES) for i in range(0, B, PLAIN_LANES)]
+        err = 0.0
+        for b in slices:
+            want, want_lse = fa.flash_mha_reference(q[b], k[b], v[b], spec, heads)
+            err = max(err, (out[b].float() - want.float()).abs().max().item(),
+                      (lse[b] - want_lse).abs().max().item())
+            del want, want_lse
+        torch.cuda.empty_cache()
+        if not torch.isfinite(out.float()).all() or err > TOL["bfloat16"]:
+            raise AssertionError(f"K3 at B={B} T={T} disagrees with its plain version: {err}")
+        before = torch.cuda.memory_allocated()
+        kept = fa.flash_mha(q, k, v, spec, heads)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        if held >= kept.numel() * kept.element_size() + lse.numel() * lse.element_size():
+            raise AssertionError(f"K3 under inference_mode left {held} bytes allocated, its output is "
+                                 f"{kept.numel() * kept.element_size()}: something was kept for a backward")
+        del kept
+        ms = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads))
+        plain_ms = _median_ms(lambda: [fa.flash_mha_reference(q[b], k[b], v[b], spec, heads) for b in slices],
+                              reps=3, warmup=1, batch=1)
+        idx = torch.arange(T, device="cuda")
+        mask = fa.block_mask(idx[:, None], idx[None, :], T, spec)
+        q4, k4, v4 = (x.view(B, T, heads, d).transpose(1, 2) for x in (q, k, v))
+        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+                                reps=10, warmup=2)
+    bound, by = _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")["fwd"]
+    del q, k, v, out, lse, mask, q4, k4, v4
+    torch.cuda.empty_cache()
+    return {"shape": f"B={B} T={T} H=256/8 bf16 dropout 0, forward only", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "inference_mode_bytes_held": held}
+
+
+def _eval_exact() -> dict:
+    """``PolicyEvaluator.evaluate`` in multi_agent mode, exact rollout, at
+    full width on one chunk of 32 scenes (``rollout/setup.py``): K3
+    launched 2 passes x 4 layers x 90 steps = 720 times, K4, K1 and K2
+    never; the tile table built once for the 720 launches; every metric in
+    its range."""
+    import torch
+
+    from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+    from ctrl_sim_tpu_torch.rollout.setup import exact_eval_setup
+
+    cfg, model, scenes = exact_eval_setup(SEED)
+    ev = PolicyEvaluator(cfg, model, lane_batch=32)
+    (_, controlled, groups), = ev.chunks(scenes)
+    E, G = controlled.shape[0], groups.num_groups
+    per_scene = collections.Counter(groups.group_valid.sum(dim=1).tolist())
+    tables0 = fa._device_tile_table.cache_info()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    start = time.perf_counter()
+    metrics = ev.evaluate(scenes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    _expect_counts("eval-exact", (per_chunk, 0, 0, 0))
+    tables1 = fa._device_tile_table.cache_info()
+    built, reused = tables1.misses - tables0.misses, tables1.hits - tables0.hits
+    if built > 1 or built + reused != per_chunk:
+        raise AssertionError(f"eval-exact: the tile table was built {built} times and reused {reused} times "
+                             f"over {per_chunk} launches")
+    _check_metrics("eval-exact", metrics, POLICY_RATES)
+    return {"wall_s": wall, "launches": per_chunk, "E": E, "G": G, "EG": E * G, "metrics": metrics,
+            "groups_per_scene": ", ".join(f"{g}: {n} scenes" for g, n in sorted(per_scene.items())),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "tables_built": built,
+            "evaluated": int(controlled.sum()), "cfg": cfg, "model": model, "scenes": scenes}
+
+
+def _eval_multigroup(cfg, model) -> tuple[int, str]:
+    """8 scenes of 40 agents at full width, in two or more focal groups a
+    scene: the chunk's exact rollout, then the same chunk padded by one
+    empty group under the first run's draws, whose metrics must be equal
+    and whose logits must agree within the bf16 tolerance of the
+    replayed-draw tests (0.05). Returns (G, detail)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.config import _set_dotted
+    from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
+    from ctrl_sim_tpu_torch.evals.metrics import PolicyMetricsAccumulator
+    from ctrl_sim_tpu_torch.rollout.groups import pad_groups
+    from ctrl_sim_tpu_torch.rollout.policy import PolicySampler
+    from ctrl_sim_tpu_torch.rollout.setup import eval_scenes
+
+    cfg = _set_dotted(cfg, "sim.max_agents", 40)
+    ev = PolicyEvaluator(cfg, model)
+    (batch, controlled, groups), = ev.chunks(eval_scenes(cfg, lanes=8, agents=40))
+    G = groups.num_groups
+    if G < 2:
+        raise AssertionError(f"eval-multigroup: expected two or more focal groups, got {G}")
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    recording = _RecordingSampler(PolicySampler(cfg, torch.Generator(device="cuda").manual_seed(SEED)))
+    runs = []
+    for spec, sampler in ((groups, recording), (pad_groups(groups, G + 1), None)):
+        sampler = sampler or _ReplaySampler(recording.rtg, recording.act, "cuda")
+        _zero_counts()
+        start = time.perf_counter()
+        out = ev.rollout(batch, controlled, spec, None, sampler)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        _expect_counts("eval-multigroup", (per_chunk, 0, 0, 0))
+        acc = PolicyMetricsAccumulator(cfg)
+        acc.update(out, batch)
+        runs.append((acc.compute(), sampler.logits, elapsed))
+    (m0, l0, s0), (m1, l1, s1) = runs
+    _check_metrics("eval-multigroup", m0, POLICY_RATES)
+    logit_err = max((a - b).abs().max().item() for a, b in zip(l0, l1))
+    if m0 != m1 or logit_err > 0.05:
+        raise AssertionError(f"eval-multigroup: the chunk padded to G + 1 differs: logits {logit_err}, "
+                             f"metrics {m0} against {m1}")
+    return G, (f"8 scenes of 40 agents, G = {G} (EG = {8 * G}), {int(controlled.sum())} vehicles evaluated; padded "
+            f"to G = {G + 1}: metrics equal, max |d action logits| {logit_err:.3g}; {per_chunk} K3 launches each; "
+            f"rollouts {s0:.3f} s and {s1:.3f} s (cold, not a benchmark); goal {m0['goal']:.4f}, ade "
+            f"{m0['ade']:.4f}")
+
+
+def _eval_streaming(cfg, model, scenes) -> str:
+    """The eval-exact chunk through the streaming rollout (episode-start
+    frames, 16 packed slots): K1 launched 720 times, no other kernel."""
+    import torch
+
+    from ctrl_sim_tpu_torch.config import _set_dotted
+    from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
+
+    for key, value in {"eval.rollout_mode": "streaming", "waymo.episode_start_normalization": True,
+                       "eval.agent_slots": 16}.items():
+        cfg = _set_dotted(cfg, key, value)
+    ev = PolicyEvaluator(cfg, model)
+    _zero_counts()
+    start = time.perf_counter()
+    metrics = ev.evaluate(scenes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    _expect_counts("eval-streaming", (0, 0, per_chunk, 0))
+    _check_metrics("eval-streaming", metrics, POLICY_RATES)
+    return (f"{len(scenes)} scenes, 16 slots, {per_chunk} K1 launches, evaluate {wall:.3f} s (cold, not a "
+            f"benchmark); goal {metrics['goal']:.4f}, collision {metrics['collision_rate']:.4f}, ade "
+            f"{metrics['ade']:.4f}")
+
+
+def _attack_path(scene, target: int, attacker: int):
+    """A CAT-style attack: ``attacker`` drives straight from its start to
+    where ``target`` is mid-episode, and on along the same line."""
+    import numpy as np
+
+    meet = scene.traj_position.shape[1] // 2
+    p0 = scene.traj_position[attacker, 0].astype(np.float64)
+    step = (scene.traj_position[target, meet] - p0) / meet
+    return (p0[None] + np.arange(scene.traj_position.shape[1])[:, None] * step[None]).astype(np.float32)
+
+
+def _eval_planner(cfg, model) -> str:
+    """``PlannerAdversaryEvaluator`` on 8 scenes of 12 agents, exact
+    rollout, per-agent tilts: ego and adversary are each scene's first
+    conflict pair (agents 1 and 2, on crossing courses); the adversary of
+    scene 0 replays a CAT attack path (``evals/cat.py``'s polyline yaw and
+    speed), the others run the negatively tilted policy."""
+    import torch
+
+    from ctrl_sim_tpu_torch.evals.planner_adversary import PlannerAdversaryEvaluator
+    from ctrl_sim_tpu_torch.rollout.setup import eval_scenes
+
+    scenes = eval_scenes(cfg, lanes=8, conflict_pairs=2)
+    advs = [_attack_path(scenes[0], target=1, attacker=2)] + [None] * 7
+    ev = PlannerAdversaryEvaluator(cfg, model)
+    _zero_counts()
+    start = time.perf_counter()
+    metrics = ev.evaluate(scenes, [(1, 2)] * len(scenes), advs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    _expect_counts("eval-planner", (per_chunk, 0, 0, 0))
+    _check_metrics("eval-planner", metrics, PLANNER_RATES)
+    return (f"{len(scenes)} scenes, one CAT replay, {per_chunk} K3 launches, evaluate {wall:.3f} s (cold, not a "
+            f"benchmark); ego goal {metrics['ego_goal']:.4f}, ego cr {metrics['ego_cr']:.4f}, cr with adversary "
+            f"{metrics['ego_cr_w_adv']:.4f}, ego ade {metrics['ego_ade']:.4f}")
+
+
+def _finetune(store) -> str:
+    """3 full-width train steps on a ``FinetuningStore`` that mixes the
+    training phase's replayed store with 16 CAT scenes (agent 1 replaced by
+    an attack on agent 2, replayed through physics): K3/K4 launched 16 times
+    each a step, every loss finite."""
+    import torch
+
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.finetune import FinetuningStore
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.evals.cat import make_adversarial_scenario
+    from ctrl_sim_tpu_torch.profile_train import AGENTS, ARENA, LANE_ROADS, full_width_setup
+
+    cfg, store, state, train_step, data_gen, dropout_gen, _ = full_width_setup(SEED, store=store)
+    cat_scenes = []
+    for s in range(16):
+        base = synthetic_scenario(cfg, seed=1000 + s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS,
+                                  conflict_pairs=2)
+        cat_scenes.append(make_adversarial_scenario(base, 1, _attack_path(base, target=2, attacker=1))[0])
+    ft = FinetuningStore(cfg, store, ScenarioStore.from_scenes(cfg, cat_scenes), [1] * len(cat_scenes))
+    per_step = cfg.model.num_decoder_layers * cfg.train.accum_steps
+    losses_seen, step_ms = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        batch = ft.sample_batch(data_gen, cfg.train.global_batch_size)
+        _zero_counts()
+        start = time.perf_counter()
+        state, losses = train_step(state, batch, dropout_gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        _expect_counts(f"finetune step {i}", (per_step, per_step, 0, 0))
+        values = [float(x) for x in losses] + [float(state.grad_norm)]
+        if not all(map(math.isfinite, values)) or values[0] <= 0:
+            raise AssertionError(f"finetune step {i}: non-finite or zero loss or gradient norm {values}")
+        losses_seen.append(values[0])
+    return (f"{FAMILY_TRAIN_STEPS} steps of {cfg.train.global_batch_size} = {cfg.waymo.replay_ratio:.0%} replayed + "
+            f"CAT scenes centred on their adversary; losses {', '.join(f'{x:.4f}' for x in losses_seen)}; step ms "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)}; {per_step} K3 and {per_step} K4 launches a step")
 
 
 def _rollout(phase: str, cfg, model, sc, controlled, tilt) -> tuple[float, int, str]:
@@ -767,20 +1089,14 @@ def _rollout(phase: str, cfg, model, sc, controlled, tilt) -> tuple[float, int, 
 
     int8 = cfg.model.kv_cache_dtype == "int8"
     kernel = attention.cached_decode_attention_q8 if int8 else attention.cached_decode_attention
-    torch.cuda.synchronize()
-    attention.cached_decode_attention.launches = 0
-    attention.cached_decode_attention_q8.launches = 0
+    _zero_counts()
     start = time.perf_counter()
     out = run_streaming(cfg, model, sc, controlled, torch.Generator(device="cuda").manual_seed(SEED), tilt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
-    launched = kernel.launches
-    other = attention.cached_decode_attention.launches + attention.cached_decode_attention_q8.launches - launched
     steps = cfg.sim.steps
-    expected = _decode_passes(cfg) * cfg.model.num_decoder_layers * steps
-    if launched != expected or other:
-        raise AssertionError(f"{phase}: {kernel.__name__} launched {launched} times on the main path, expected "
-                             f"{expected}; the other decode kernel {other} times, expected 0")
+    launched = _decode_passes(cfg) * cfg.model.num_decoder_layers * steps
+    _expect_counts(phase, (0, 0, 0, launched) if int8 else (0, 0, launched, 0))
     for name, x in out._asdict().items():
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"{phase}: non-finite rollout output {name}")
@@ -1001,9 +1317,53 @@ def main() -> int:
     k3_launches, k4_launches = train["launches"]
 
     t0 = time.perf_counter()
-    fam_train = _train_families(train.pop("store"))
+    store = train.pop("store")
+    fam_train = _train_families(store)
     _phase("families-train", t0, f"{FAMILY_TRAIN_STEPS} full-width steps each of {', '.join(fam_train)} on K3/K4, "
            f"losses finite")
+
+    t0 = time.perf_counter()
+    detail = "; ".join(_small_agreement(family, exact=True, groups=groups) for family, groups in (
+        ("ctrl_sim", False), ("dt", False), ("ctrl_sim", True)))
+    _phase("eval-small-agreement", t0, detail)
+
+    t0 = time.perf_counter()
+    ev = _eval_exact()
+    k3_eval = _flash_eval_shape(gen, ev["EG"])
+    k3_b32 = _flash_eval_shape(gen, 32)  # one focal group a scene
+    m = ev["metrics"]
+    for label, row in (("the exact rollout's decode shape", k3_eval), ("one group a scene", k3_b32)):
+        print(f"  K3 at {label}, {row['shape']}: err {row['max_abs_err']:.3g}, kernel {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library (SDPA, bool "
+              f"mask) {row['library_ms']:.4f} ms; a launch under inference_mode holds "
+              f"{row['inference_mode_bytes_held']} bytes (its output) afterwards", flush=True)
+    _phase("eval-exact", t0,
+           f"{ev['E']} scenes in one chunk, focal groups a scene {ev['groups_per_scene']}, padded to G = {ev['G']} "
+           f"(EG = {ev['EG']}), {ev['evaluated']} vehicles evaluated, "
+           f"90 steps, contacts on; evaluate {ev['wall_s']:.3f} s (one cold run on this card, not a benchmark); "
+           f"peak memory {ev['peak_gib']:.2f} GiB; K3 launches {ev['launches']}, K4/K1/K2 0; tile table built "
+           f"{ev['tables_built']} time(s); goal {m['goal']:.4f}, collision {m['collision_rate']:.4f}, offroad "
+           f"{m['offroad_rate']:.4f}, ade {m['ade']:.4f}, fde {m['fde']:.4f}, lin_speed_jsd "
+           f"{m['lin_speed_jsd']:.4f}, nearest_dist_jsd {m['nearest_dist_jsd']:.4f}")
+
+    t0 = time.perf_counter()
+    G, detail = _eval_multigroup(ev["cfg"], ev["model"])
+    k3_multigroup = _flash_eval_shape(gen, 8 * G)
+    _phase("eval-multigroup", t0, f"{detail}; K3 at B = {8 * G}: err {k3_multigroup['max_abs_err']:.3g}, kernel "
+           f"{k3_multigroup['ms']:.4f} ms, bound {k3_multigroup['bound_ms']:.4f} ms, plain "
+           f"{k3_multigroup['plain_ms']:.4f} ms, SDPA {k3_multigroup['library_ms']:.4f} ms")
+
+    t0 = time.perf_counter()
+    _phase("eval-streaming", t0, _eval_streaming(ev["cfg"], ev["model"], ev["scenes"]))
+
+    t0 = time.perf_counter()
+    _phase("eval-planner", t0, _eval_planner(ev["cfg"], ev["model"]))
+    ev_launches = ev["launches"]
+    del ev
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _phase("finetune", t0, _finetune(store))
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
@@ -1082,6 +1442,9 @@ def main() -> int:
             "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("fwd"),
+            "exact_eval_shape": {**k3_eval, "launches_per_chunk": ev_launches},
+            "exact_eval_one_group_shape": {**k3_b32, "launches_per_chunk": None},
+            "multigroup_eval_shape": {**k3_multigroup, "launches_per_chunk": ev_launches},
         },
         {
             "name": "flash_mha_bwd",

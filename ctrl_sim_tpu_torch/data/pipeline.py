@@ -71,9 +71,14 @@ def build_train_sample(
     road_valid: Tensor,  # [E, P] bool
     generator: torch.Generator | None = None,
     draws: TrainDraws | None = None,
+    focal_idx: Tensor | None = None,  # [E] long, -1 = none (finetuning: the CAT adversary)
+    supervise_focal_only: Tensor | None = None,  # [E] bool
 ) -> dict:
-    """One training sample per scene (the finetuning focal-agent options of
-    the JAX function are not ported)."""
+    """One training sample per scene. The finetuning options
+    (dataset_ctrl_sim_finetuning.py): where ``focal_idx`` >= 0 and
+    ``waymo.center_on_focal_agent``, the origin agent is the focal agent;
+    where ``supervise_focal_only`` too, the loss mask
+    (``moving_agent_mask``) keeps only the focal agent (:160-163)."""
     wc = cfg.waymo
     T_ctx, K = wc.train_context_length, wc.max_num_agents
     E, A, T, _ = states.shape
@@ -120,11 +125,20 @@ def build_train_sample(
             cand = cand & (w_states[:, :, 0, -1] > 0)
         origin_agent = torch.where(cand, u[:, 1 : 1 + A], -1.0).argmax(dim=-1)
         perm = torch.argsort(u[:, 1 + A :], dim=-1)  # the shuffle key of the selected slots
+    if focal_idx is not None:
+        focal = focal_idx.to(dev).long()
+        use_focal = (focal >= 0) & wc.center_on_focal_agent
+        origin_agent = torch.where(use_focal, focal.clamp(min=0), origin_agent)
 
     crop_pos = states[:, :, 0, :2] if wc.episode_start_normalization else w_states[:, :, 0, :2]
     sel = tf.select_relevant_agents_idx(crop_pos, filtered, origin_agent, wc, perm=perm)
     sel_states = tf.gather_agents(w_states, sel)
     sel_goals = tf.gather_agents(goals, sel)
+    sel_moving = tf.gather_agents(moving.float(), sel)
+    if focal_idx is not None and supervise_focal_only is not None:
+        is_focal = (sel.gather_idx == focal.clamp(min=0)[:, None]).float() * sel.slot_valid
+        only = supervise_focal_only.to(dev).bool() & (focal >= 0)
+        sel_moving = torch.where(only[:, None], is_focal, sel_moving)
     anchor_pose = None
     if wc.episode_start_normalization:
         first = states[torch.arange(E, device=dev), origin_agent, 0]
@@ -137,7 +151,7 @@ def build_train_sample(
         "actions": tf.discretize_actions(tf.gather_agents(w_actions, sel), wc),  # [E, K, T_ctx]
         "rtgs": tf.discretize_rtgs(tf.gather_agents(w_rtgs, sel), wc),  # [E, K, T_ctx, 3]
         "timesteps": t_safe,  # [E, T_ctx]
-        "moving_agent_mask": tf.gather_agents(moving.float(), sel),  # [E, K]
+        "moving_agent_mask": sel_moving,  # [E, K]
         "road_points": norm.road_points,  # [E, P', L, 3]
         "road_types": norm.road_types,  # [E, P', 8]
         "gather_idx": sel.gather_idx,
@@ -152,14 +166,18 @@ def build_train_batch(
     offline: OfflineArrays,
     generator: torch.Generator | None = None,
     draws: TrainDraws | None = None,
+    focal_idx: Tensor | None = None,
+    supervise_focal_only: Tensor | None = None,
 ) -> dict:
     """A model batch of one sample per scene of ``scenario`` (tensor
     fields, one device with ``offline``), with the agent-type one-hots
-    gathered into the selected slots (-1 rows where a slot is empty)."""
+    gathered into the selected slots (-1 rows where a slot is empty); the
+    focal options as in ``build_train_sample``."""
     batch = build_train_sample(
         cfg, offline.states, offline.actions, compute_rtgs(cfg, offline),
         goals_from_scenario(scenario), scenario.agent_valid, scenario.road_points,
         scenario.road_types, scenario.road_valid, generator=generator, draws=draws,
+        focal_idx=focal_idx, supervise_focal_only=supervise_focal_only,
     )
     n = cfg.waymo.num_agent_types
     onehot = (scenario.agent_type[..., None] == torch.arange(n, device=scenario.agent_type.device)).float()

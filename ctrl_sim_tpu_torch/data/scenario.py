@@ -18,6 +18,7 @@ import torch
 
 from ctrl_sim_tpu_torch.config import Config
 
+OBJECT_TYPES = {"unset": 0, "vehicle": 1, "pedestrian": 2, "cyclist": 3, "other": 4}
 ROAD_TYPES = {
     "none": 0,
     "lane": 1,

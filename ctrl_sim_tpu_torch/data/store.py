@@ -90,11 +90,18 @@ class ScenarioStore:
         every draw."""
         if family != "ctrl_sim":
             raise NotImplementedError(f"family {family!r}: only ctrl_sim batches are ported")
+        scen, off = self.take(self.draw_indices(generator, batch_size))
+        return build_train_batch(self.cfg, scen, off, generator=generator)
+
+    def draw_indices(self, generator: torch.Generator | None, n: int) -> torch.Tensor:
+        """``n`` scene indices drawn uniformly with replacement by
+        ``generator`` (on any device), on the store's device."""
         gdev = generator.device if generator is not None else self.device
-        idx = torch.randint(0, self.num_scenes, (batch_size,), generator=generator, device=gdev)
-        idx = idx.to(self.device)
+        return torch.randint(0, self.num_scenes, (n,), generator=generator, device=gdev).to(self.device)
+
+    def take(self, idx: torch.Tensor) -> tuple[Scenario, OfflineArrays]:
+        """The scenes ``idx`` of the store and their offline arrays."""
         scen = dataclasses.replace(
             self.scenario, **{k: v[idx] for k, v in _arrays(self.scenario, torch.Tensor).items()}
         )
-        off = OfflineArrays(*(x[idx] for x in self.offline))
-        return build_train_batch(self.cfg, scen, off, generator=generator)
+        return scen, OfflineArrays(*(x[idx] for x in self.offline))

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,8 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -1,1 +1,2 @@
-"""The closed-loop streaming rollout of the port."""
+"""The closed-loop rollouts of the port: exact (re-decoding the window) and
+streaming (KV-cached)."""

@@ -1,20 +1,30 @@
-"""Focal groups of the streaming rollout (the parts of
-``ctrl_sim_tpu/rollout/groups.py`` that ``run_streaming`` calls by default).
+"""Focal groups of the closed-loop rollouts (port of
+``ctrl_sim_tpu/rollout/groups.py``).
 
 A group is a fixed-shape index map from model slots to scene agents;
 ``gather_members`` reads per-agent data into the slots and
 ``scatter_by_rank`` resolves the cross-group dedup (lower group rank wins,
-autoregressive_policy.py:185-207). The host-built multi-group
-``build_focal_groups`` is not ported yet.
+autoregressive_policy.py:185-207). Scenes with more agents than one model
+crop are split into focal groups on the host at t = 0
+(``build_focal_groups``, the reference's greedy construction of
+autoregressive_policy.py:88-137): the evaluated vehicles sorted by GT
+trajectory length, longest first, each still unaccounted one becomes the
+focal of a group of the <= crop agents nearest to it within 60 m, and
+every unaccounted evaluated vehicle inside that crop is assigned to it.
+Two documented deviations of the JAX package are kept: every contained
+vehicle is assigned (the reference's loop skips one after each hit), and a
+group whose focal dies keeps its members and re-elects its origin.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ctrl_sim_tpu_torch.config import Config
+from ctrl_sim_tpu_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -35,6 +45,91 @@ class GroupSpec(NamedTuple):
     @property
     def crop_size(self) -> int:
         return self.members.shape[2]
+
+
+def build_focal_groups(
+    cfg: Config,
+    traj_position: np.ndarray,  # [E, A_sim, T+1, 2]
+    traj_valid: np.ndarray,  # [E, A_sim, T+1] bool
+    agent_valid: np.ndarray,  # [E, A_sim] bool
+    controlled: np.ndarray,  # [E, A_sim] bool
+    min_groups: int = 1,
+    crop_size: int | None = None,
+    device: torch.device | str | None = None,
+) -> GroupSpec:
+    """The focal groups of each scene, from its t = 0 GT state only, built
+    in numpy and returned as tensors on ``device`` (the card unless the
+    caller passes ``device="cpu"``). ``crop_size`` below
+    ``waymo.max_num_agents`` builds packed crops for the streaming rollout
+    (``eval.agent_slots``)."""
+    wc = cfg.waymo
+    Am = crop_size or wc.max_num_agents
+    E, A_sim = controlled.shape
+    lengths = traj_valid.sum(axis=2).astype(np.float32)  # [E, A_sim]
+
+    per_scene: list[list[tuple[np.ndarray, list[int]]]] = []
+    for e in range(E):
+        pos0 = traj_position[e, :, 0]
+        exist0 = traj_valid[e, :, 0] & agent_valid[e]
+        evaluated = [int(i) for i in np.where(controlled[e])[0]]
+        # longest GT trajectory first: the stable ascending argsort reversed,
+        # so ties go to the higher index first, as in the reference
+        order = np.argsort(np.array([lengths[e, v] for v in evaluated]), kind="stable")[::-1]
+        unaccounted = [evaluated[i] for i in order]
+        groups: list[tuple[np.ndarray, list[int]]] = []
+        while unaccounted:
+            focal = unaccounted.pop(0)
+            if not exist0[focal]:  # a focal dead at t = 0 never acts
+                continue
+            # the <= Am closest agents within the radius, in original-index order
+            dist = np.linalg.norm(pos0 - pos0[focal][None], axis=-1)
+            in_range = (dist < wc.agent_dist_threshold) & exist0
+            closest = np.argsort(dist, kind="stable")[:Am]
+            members = np.intersect1d(closest, np.where(in_range)[0])
+            member_set = set(members.tolist())
+            assigned = [focal] + [v for v in unaccounted if v in member_set]
+            assigned_set = set(assigned)
+            unaccounted = [v for v in unaccounted if v not in assigned_set]
+            groups.append((members, assigned))
+        per_scene.append(groups)
+
+    G = max(min_groups, max((len(g) for g in per_scene), default=1))
+    members = np.full((E, G, Am), A_sim, dtype=np.int64)
+    member_valid = np.zeros((E, G, Am), dtype=bool)
+    assigned_m = np.zeros((E, G, Am), dtype=bool)
+    group_valid = np.zeros((E, G), dtype=bool)
+    for e, groups in enumerate(per_scene):
+        for g, (mem, assigned) in enumerate(groups):
+            n = len(mem)
+            members[e, g, :n] = mem
+            member_valid[e, g, :n] = True
+            group_valid[e, g] = True
+            assigned_m[e, g, :n] = np.isin(mem, assigned)
+    dev = resolve_device(device)
+    return GroupSpec(*(torch.as_tensor(x, device=dev)
+                       for x in (members, member_valid, assigned_m, group_valid, lengths)))
+
+
+def pad_groups(spec: GroupSpec, num_groups: int) -> GroupSpec:
+    """The group axis padded to ``num_groups`` with invalid groups (empty
+    lanes that change nothing), so that every chunk of an evaluation has
+    one shape."""
+    E, G, Am = spec.members.shape
+    if G >= num_groups:
+        return spec
+    A_sim = spec.gt_length.shape[1]
+
+    def padg(x: Tensor, fill) -> Tensor:
+        extra = torch.full((E, num_groups - G) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device)
+        return torch.cat([x, extra], dim=1)
+
+    return GroupSpec(
+        members=padg(spec.members, A_sim),
+        member_valid=padg(spec.member_valid, False),
+        assigned=padg(spec.assigned, False),
+        group_valid=padg(spec.group_valid, False),
+        gt_length=spec.gt_length,
+    )
 
 
 def trivial_groups(

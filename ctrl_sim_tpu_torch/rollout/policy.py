@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ctrl_sim_tpu_torch.config import Config
+
 Tensor = torch.Tensor
 
 
@@ -55,3 +57,26 @@ def sample_actions(
     if nucleus:
         scaled = nucleus_filter(scaled, nucleus_threshold)
     return sample_categorical(generator, scaled)
+
+
+class PolicySampler:
+    """Draws the rollout's RTG bins and action ids with the policy config
+    from one ``torch.Generator``. Both rollouts call
+    ``rtgs(t, table_logits [E, A, bins, 3], tilt)`` and
+    ``actions(t, table_logits [E, A, num_actions])`` (``rtgs`` only where
+    the policy samples returns, ``policy.predict_rtgs``); a test can pass
+    another object with these two methods to replay given draws."""
+
+    def __init__(self, cfg: Config, generator: torch.Generator):
+        self.pc = cfg.policy
+        self.generator = generator
+
+    def rtgs(self, t: int, logits: Tensor, tilt: Tensor) -> Tensor:
+        return sample_tilted_rtgs(self.generator, logits, tilt)
+
+    def actions(self, t: int, logits: Tensor) -> Tensor:
+        pc = self.pc
+        return sample_actions(
+            self.generator, logits, pc.action_temperature, pc.nucleus_sampling,
+            pc.nucleus_threshold,
+        )

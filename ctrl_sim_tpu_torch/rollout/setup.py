@@ -1,14 +1,17 @@
-"""The full-width streaming rollout set-up that ``chip_smoke.py`` drives and
-``profile_rollout`` profiles: each family's model with random weights from
-a seeded generator, bf16 compute and cross-attention scores, 256 synthetic
-scenes of 12 agents packed into 16 slots (bench.py's chunk and scene
-recipe), contacts on, on the card."""
+"""The full-width rollout set-ups that ``chip_smoke.py`` drives and
+``profile_rollout`` profiles, on the card. The streaming rollout: each
+family's model with random weights from a seeded generator, bf16 compute
+and cross-attention scores, 256 synthetic scenes of 12 agents packed into
+16 slots (bench.py's chunk and scene recipe), contacts on. The exact
+rollout (``exact_eval_setup``): the default model as ``eval_sim`` builds
+it, seeded, and one evaluation chunk of 32 scenes."""
 
 from __future__ import annotations
 
 import torch
 
 LANES, AGENTS, ARENA, LANE_ROADS, SLOTS = 256, 12, 300.0, 4, 16  # bench.py's chunk and scene recipe
+EVAL_LANES = 32  # one chunk of eval_sim's default lane batch
 CASES = {  # name: (preset, overrides of it); bench.py's configurations of the default family
     "bf16": ("ctrl_sim", {}),
     "int8": ("ctrl_sim", {"model.kv_cache_dtype": "int8"}),
@@ -111,3 +114,30 @@ def decode_masks(case: str, steps: int, device) -> list:
     init_params(model, torch.Generator().manual_seed(0))
     sc = _scenario(cfg, 2, device)
     return recorded_masks(cfg, model, sc, sc.moving & sc.agent_valid)
+
+
+def eval_scenes(cfg, lanes: int = EVAL_LANES, agents: int = AGENTS, conflict_pairs: int = 0) -> list:
+    """The synthetic numpy scenes that ``python -m ctrl_sim_tpu_torch.eval_sim
+    --synthetic {lanes} --synthetic_agents {agents} --synthetic_conflict
+    {conflict_pairs}`` evaluates (``synthetic_scenario``'s arena and lanes).
+    At 12 agents their vehicles fall into 3-6 focal groups a scene."""
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+
+    return [synthetic_scenario(cfg, seed=s, num_agents=agents, conflict_pairs=conflict_pairs)
+            for s in range(lanes)]
+
+
+def exact_eval_setup(seed: int = 0):
+    """(cfg, model, scenes) of the exact-mode evaluation at full width: the
+    default family as ``eval_sim`` builds it (hidden 256, 8 heads, FF 1024,
+    2 + 4 layers, bf16 compute, contacts on, ``eval.rollout_mode="exact"``),
+    seeded weights in eval mode, and ``eval_scenes``."""
+    from ctrl_sim_tpu_torch.config import preset
+    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+    from ctrl_sim_tpu_torch.params import init_params
+
+    cfg = preset("ctrl_sim")
+    model = CtRLSim(cfg)
+    init_params(model, torch.Generator().manual_seed(seed))
+    model.eval()
+    return cfg, model, eval_scenes(cfg)

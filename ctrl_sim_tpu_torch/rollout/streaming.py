@@ -45,38 +45,23 @@ from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.data import transforms as tf
 from ctrl_sim_tpu_torch.data.pipeline import goals_from_scenario
 from ctrl_sim_tpu_torch.data.scenario import Scenario
-from ctrl_sim_tpu_torch.env.dynamics import inverse_bicycle_action
 from ctrl_sim_tpu_torch.env.env import WaymoEnv
 from ctrl_sim_tpu_torch.geometry import angle_sub, apply_se2
 from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
 from ctrl_sim_tpu_torch.rollout.groups import GroupSpec, gather_members, scatter_by_rank
-from ctrl_sim_tpu_torch.rollout.policy import sample_actions, sample_tilted_rtgs
-from ctrl_sim_tpu_torch.rollout.rollout import RolloutOutput, _nearest_dist, default_groups, dt_dense_reward3
+from ctrl_sim_tpu_torch.rollout.policy import PolicySampler
+from ctrl_sim_tpu_torch.rollout.rollout import (
+    RolloutOutput,
+    agent_tilts,
+    applied_actions,
+    default_groups,
+    dt_dense_reward3,
+    finish_rollout,
+    initial_real_time_rtgs,
+    step_record,
+)
 
 Tensor = torch.Tensor
-
-
-class PolicySampler:
-    """Draws the rollout's RTG bins and action ids with the policy config
-    from one ``torch.Generator``. ``run_streaming`` calls
-    ``rtgs(t, table_logits [E, A, bins, 3], tilt)`` and
-    ``actions(t, table_logits [E, A, num_actions])`` (``rtgs`` only where
-    the policy samples returns, ``policy.predict_rtgs``); a test can pass
-    another object with these two methods to replay given draws."""
-
-    def __init__(self, cfg: Config, generator: torch.Generator):
-        self.pc = cfg.policy
-        self.generator = generator
-
-    def rtgs(self, t: int, logits: Tensor, tilt: Tensor) -> Tensor:
-        return sample_tilted_rtgs(self.generator, logits, tilt)
-
-    def actions(self, t: int, logits: Tensor) -> Tensor:
-        pc = self.pc
-        return sample_actions(
-            self.generator, logits, pc.action_temperature, pc.nucleus_sampling,
-            pc.nucleus_threshold,
-        )
 
 
 def _frame(origin_pos: Tensor, origin_yaw: Tensor) -> tuple[Tensor, Tensor]:
@@ -123,11 +108,8 @@ def run_streaming(
         raise ValueError(f"crop size {Am} exceeds waymo.max_num_agents {wc.max_num_agents}")
     members = groups.members
 
-    tp, th, ts, tv = (
-        scenario.traj_position, scenario.traj_heading, scenario.traj_speed, scenario.traj_valid,
-    )
     length, width = scenario.length, scenario.width
-    E, A = tp.shape[:2]
+    E, A = scenario.traj_position.shape[:2]
     EG = E * G
 
     def eg(x: Tensor) -> Tensor:
@@ -136,12 +118,7 @@ def run_streaming(
 
     goals5 = goals_from_scenario(scenario)
     types = torch.nn.functional.one_hot(scenario.agent_type.long(), wc.num_agent_types).float()
-    if tilt_logits is None:
-        tilt_logits = torch.zeros((wc.rtg_discretization, 3), device=dev)
-    if tilt_logits.dim() == 2:
-        agent_tilt = torch.where(controlled_mask[..., None, None], tilt_logits, 0.0)
-    else:
-        agent_tilt = tilt_logits
+    agent_tilt = agent_tilts(cfg, controlled_mask, tilt_logits)
 
     env_state = env.reset(scenario)
 
@@ -217,9 +194,7 @@ def run_streaming(
             mc.attend_own_return_action, device=dev,
         )
     # DT's real-time returns (policy_evaluator.py:123-145), decayed each step
-    rtg_rt = torch.tensor([10.0, 90.0, 90.0], device=dev).expand(E, A, 3)
-    if pc.min_return:
-        rtg_rt = torch.where(controlled_mask[..., None], torch.tensor([0.0, -10.0, -10.0], device=dev), rtg_rt)
+    rtg_rt = initial_real_time_rtgs(cfg, controlled_mask)
     a_ids = torch.arange(Am, device=dev).expand(EG, Am)
     probe_ids = tf.discretize_actions(torch.zeros((EG, Am, 2), device=dev), wc).long()  # trajeglish
 
@@ -238,7 +213,7 @@ def run_streaming(
     prev_action_ids = torch.zeros((EG, Am), dtype=torch.long, device=dev)
     prev_exist = torch.zeros((EG, Am), device=dev)
     slot_rows = origin_slot[..., None, None].expand(E, G, 1, 2)
-    ys = []
+    rows = []
     for t in range(steps):
         reward8, env_state = env.reward(scenario, env_state)
         bodies = env_state.bodies
@@ -308,25 +283,10 @@ def run_streaming(
         policy_actions = tf.undiscretize_actions(action_ids, wc) * act_covered[..., None]
 
         # ---- applied actions: policy after the history, GT replay otherwise
-        gt_accel, gt_steer = inverse_bicycle_action(
-            tp[:, :, t + 1], th[:, :, t + 1], ts[:, :, t + 1],
-            bodies.position, bodies.heading, bodies.speed, length, cfg.sim.dt,
-        )
-        replay_valid = env_state.alive & tv[:, :, t] & tv[:, :, t + 1]
-        gt_accel = torch.where(replay_valid, gt_accel, 0.0)
-        gt_steer = torch.where(replay_valid, gt_steer, 0.0)
-        use_policy = controlled_mask & env_state.alive & (t >= cfg.sim.history_steps - 1)
-        accel = torch.where(use_policy, policy_actions[..., 0], gt_accel)
-        steer = torch.where(use_policy, policy_actions[..., 1], gt_steer)
-
+        accel, steer, alive_next = applied_actions(cfg, scenario, env_state, t, controlled_mask, policy_actions)
         # the applied ids enter each lane's cache at the start of the next step
         applied_ids = tf.discretize_actions(torch.stack([accel, steer], dim=-1), wc).long()
-        alive_next = env_state.alive & tv[:, :, t + 1] & (use_policy | replay_valid)
-        ys.append((
-            bodies.position, bodies.velocity, bodies.heading, bodies.speed,
-            env_state.alive.float(), reward8, accel, steer,
-            _nearest_dist(bodies.position, env_state.alive.float()), rtg_cont,
-        ))
+        rows.append(step_record(env_state, reward8, accel, steer, rtg_cont))
         env_state = env.step(
             scenario, env_state, accel, steer,
             expert_mask=torch.zeros_like(alive_next), alive_next=alive_next,
@@ -334,25 +294,4 @@ def run_streaming(
         prev_action_ids = eg(gather_members(applied_ids, members))
         prev_exist = model_exist
 
-    final_reward8, final = env.reward(scenario, env_state)
-    cols = list(zip(*ys))
-    last = (
-        final.bodies.position, final.bodies.velocity, final.bodies.heading,
-        final.bodies.speed, final.alive.float(), final_reward8,
-    )
-    stacked = [torch.stack(list(c) + [x]) for c, x in zip(cols[:6], last)]
-    return RolloutOutput(
-        position=stacked[0],
-        velocity=stacked[1],
-        heading=stacked[2],
-        speed=stacked[3],
-        existence=stacked[4],
-        reward8=stacked[5],
-        acceleration=torch.stack(cols[6]),
-        steering=torch.stack(cols[7]),
-        nearest_dist=torch.stack(
-            list(cols[8]) + [_nearest_dist(final.bodies.position, final.alive.float())]
-        ),
-        rtgs=torch.stack(cols[9]),
-        controlled_mask=controlled_mask,
-    )
+    return finish_rollout(env, scenario, env_state, rows, controlled_mask)
