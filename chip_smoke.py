@@ -112,14 +112,46 @@ code is 0 only when every phase passed:
    ``PlannerAdversaryEvaluator`` on 8 scenes with crossing pairs, exact,
    per-agent tilts, one adversary replaying a CAT attack path; finetune: 3 full-width train
    steps on a ``FinetuningStore`` of the training store and 16 CAT scenes
-   (16 K3 and 16 K4 launches a step, losses finite).
+   (16 K3 and 16 K4 launches a step, losses finite);
+11. the trained checkpoint and real scene data. trained-weights: r05_s0
+   (``artifacts/torch/r05_s0``, converted from the orbax checkpoint by
+   ``tools/convert_checkpoints_to_torch.py``; f32, hidden 64, 4 heads of
+   16, 2 decoder layers) restored on the card and on the CPU, the training
+   forward's heads on the same held-out scenes within 1e-4 (K3's f32
+   kernel, one launch a layer); tilt-sweep: the artifact's recipe (256
+   held-out scenes from seed 1000 with one crossing pair, streaming, 32
+   lanes a chunk, veh-veh tilts -50, 0, 10), K1 launched 2 passes x 2
+   layers x 40 steps a chunk, and each of goal, collision rate and ADE
+   held to ``artifacts/eval_r05_tilt_sweep.json`` (``veh_conflict``, seeds 0
+   and 1): within the larger of 3 x |seed0 - seed1|, 3 binomial standard
+   errors over the controlled agents (rates) and 5% of the mean (ADE); ADE
+   at -50 above ADE at 10; then K1 at r05's decode shape against its plain
+   version, timed (the kernel alone: ten raw launches captured in a CUDA
+   graph); planner-adversary-trained: 64 such scenes with two crossing
+   pairs, adversary tilts -10 and -50, at the eval seeds of
+   ``artifacts/torch/eval_r05_planner_jax_seeds.json`` (the JAX package's
+   readings, ``tools/r05_planner_seed_spread.py``), the card's means of
+   ``ego_cr_w_adv`` and ``adv_coll_speed`` within 3 standard errors of the
+   difference of two means (from both spreads; for the rate at least the
+   binomial one) of the JAX package's, and
+   ``artifacts/eval_r05_planner.json`` (one JAX run) printed beside them;
+   examples: ``examples/torch_*.py`` as
+   subprocesses, exit 0; json-data: 64 scenes of the default config
+   written in the raw dialect and, replayed, the physics dialect, read by
+   the Python and the native loader (files/s, fields equal),
+   ``train.py --data_dir --val_dir`` for 3 full-width steps (16 K3 and 16
+   K4 a step, 4 K3 for the validation), ``eval_sim.py --data_dir``
+   streaming (K1) and exact (K3), and the focal groups of the loaded
+   scenes. Head widths without a kernel instance (d = 8 and 48, each head
+   zero-padded to 16 and 64) are held in k1-vs-plain, k2-vs-plain and
+   k3-k4-vs-plain, and K3/K4 timed at them.
 
 Then one line ``{"kernels": [...]}``, each kernel's row with its times
 at the other families' shapes under ``family_shapes`` and K3's at the
 exact rollout's under ``exact_eval_shape`` (B = the eval-exact chunk's
 scenes x groups), ``exact_eval_one_group_shape`` (B = 32) and
-``multigroup_eval_shape`` (B = 8 G), and, last, the
-device line ``{"ok": true, "device": {...}}``.
+``multigroup_eval_shape`` (B = 8 G), each row's ``head_width_cases``, K1's
+``r05_shape``, and, last, the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -172,6 +204,7 @@ FAMILY_GOLDEN_CONFIG = {
 }
 FAMILY_FLAGS = {"dt": "model.decision_transformer", "il": "model.il", "trajeglish": "model.trajeglish"}
 FAMILY_TRAIN_STEPS = 3
+WIDTH_CASES = (8, 48)  # head widths without a kernel instance (padded to 16 and 64)
 
 
 def _phase(name: str, t0: float, detail: str = "") -> None:
@@ -244,11 +277,40 @@ def _median_ms(fn, reps: int = 30, warmup: int = 5, batch: int = 10) -> float:
     return statistics.median(times)
 
 
-def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
+def _graph_ms(fn, reps: int = 30, batch: int = 10) -> float:
+    """Milliseconds per call of ``fn`` on the device alone: ``batch`` calls
+    captured in one CUDA graph, the median of ``reps`` timed replays. For
+    calls shorter than the host's time to enqueue them, which a run of
+    eager calls (``_median_ms``) would time instead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    return statistics.median(times)
+
+
+def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False, graph=False):
     """K1 (or, with ``int8``, K2 over a cache quantized from unit normals by
     ``quantize_rows``) against its plain version on one input; returns the
     measured row. The library yardstick for K2 runs over the K/V
-    dequantized to q's dtype beforehand."""
+    dequantized to q's dtype beforehand. With ``graph`` (K1 at a width it
+    is built for), ``ms`` and ``library_ms`` time the kernel's raw launch
+    and SDPA in a CUDA graph (``_graph_ms``), and ``wrapper_ms`` the eager
+    wrapper as the other rows do."""
     import torch
     import torch.nn.functional as F
 
@@ -289,7 +351,7 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
     ops = 4 * B * Q * N * H
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return {
+    row = {
         "shape": f"B={B} Q={Q} N={N} H={H}/{heads} {dtype}" + (" int8 K/V" if int8 else ""),
         "max_abs_err": err,
         "ms": _median_ms(lambda: kernel(*args)),
@@ -298,6 +360,42 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    if graph:
+        row.update(_k1_graph_times(q, k, v, mask, heads, got, q4, k4, v4, bool_mask))
+    return row
+
+
+def _k1_graph_times(q, k, v, mask, heads, got, q4, k4, v4, bool_mask) -> dict:
+    """K1's raw launch (the wrapper's pre-scale and mask cast done once,
+    outside) and SDPA, each timed in a CUDA graph; the raw launch's output
+    must equal the wrapper's."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctrl_sim_tpu_torch.ops import attention
+    from ctrl_sim_tpu_torch.ops.heads import KERNEL_HEAD_DIMS
+
+    B, Q, H = q.shape
+    N = k.shape[1]
+    if H // heads not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the raw launch takes no padded head width (d = {H // heads})")
+    fn = attention._kernel("decode_attention.cu", "ctrl_sim_decode_attention", 5)
+    qs = attention._prescale(q, heads).contiguous()
+    mask_i8 = torch.nn.functional.pad(mask.to(torch.int8), (0, N % 2)).contiguous()
+    out = torch.empty_like(qs)
+
+    def launch():
+        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(), out.data_ptr(), B, Q, N, H, heads,
+                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {err}")
+
+    ms = _graph_ms(launch)
+    if not torch.equal(out, got):
+        raise AssertionError("K1's raw launch differs from its wrapper's output")
+    return {"wrapper_ms": _median_ms(lambda: attention.cached_decode_attention(q, k, v, mask, heads)), "ms": ms,
+            "library_ms": _graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)),
+            "timed": "ms and library_ms: 10 calls in a CUDA graph, device only; wrapper_ms: eager wrapper calls"}
 
 
 def _quantize_rows_on_card(gen) -> str:
@@ -1076,6 +1174,394 @@ def _finetune(store) -> str:
             f"{', '.join(f'{x:.1f}' for x in step_ms)}; {per_step} K3 and {per_step} K4 launches a step")
 
 
+def _flash_width_case(gen, d: int) -> dict:
+    """K3/K4 at a head width with no kernel instance (the wrappers pad each
+    head to the next one), at the train step's layout (B = 16, T = 2304, 8
+    heads of width d, bf16, dropout 0.1): held against the plain version,
+    then timed beside their bounds at the true width."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    heads = 8
+    q, k, v, do = _flash_inputs(16, 32, 24, 3, heads, d, torch.bfloat16, gen)
+    spec, seed = fa.MaskSpec(24, 3, 0, False, None), torch.tensor([13], device="cuda")
+    row = _flash_compare(q, k, v, do, spec, heads, 0.1, seed)
+    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed)
+    row["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed))
+    row["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, 0.1, seed))
+    bounds = _flash_bounds(16, q.shape[1], heads * d, heads, spec, "bfloat16")
+    (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = bounds["fwd"], bounds["bwd"]
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+ROOT = Path(__file__).resolve().parent
+R05 = ROOT / "artifacts" / "torch" / "r05_s0"  # the trained checkpoint, converted for the port
+R05_SEED0 = 1000  # the artifacts' held-out scene seeds (tools/make_r05_artifacts.py)
+R05_TILTS = (-50.0, 0.0, 10.0)
+R05_PLANNER = {  # the planner leg's relaxed "interesting pair" thresholds (tools/make_r05_artifacts.py)
+    "eval.rollout_mode": "streaming", "eval.interesting_traj_len_threshold": 20,
+    "eval.interesting_timestep_diff_threshold": 5, "eval.interesting_goal_dist_threshold": 1000.0,
+}
+TILT_SCENES, PLANNER_SCENES, JSON_SCENES = 256, 64, 64
+# the JAX package's per-eval-seed planner readings on r05_s0 (tools/r05_planner_seed_spread.py)
+PLANNER_JAX_SEEDS = ROOT / "artifacts" / "torch" / "eval_r05_planner_jax_seeds.json"
+
+
+def _r05(device: str, **extra):
+    """(cfg, model in eval mode, step) of the converted r05 checkpoint on
+    ``device``: its ``config.json`` with ``extra`` overrides."""
+    from ctrl_sim_tpu_torch.training.checkpoint import checkpoint_config, restore_model
+
+    cfg = checkpoint_config(str(R05), extra)
+    model, step = restore_model(cfg, str(R05), device)
+    return cfg, model, step
+
+
+def _r05_scenes(cfg, n: int, conflict_pairs: int) -> list:
+    """The artifacts' held-out scenes: 8 agents from seed 1000."""
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+
+    return [synthetic_scenario(cfg, seed=R05_SEED0 + s, num_agents=8, conflict_pairs=conflict_pairs)
+            for s in range(n)]
+
+
+def _trained_weights(device: str = "cuda") -> str:
+    """The r05 checkpoint restored on the card and on the CPU: the training
+    forward's heads on the same batch of held-out scenes within 1e-4 (f32;
+    on the card the self-attention is K3's f32 kernel, one launch a layer)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+
+    cfg, card, step = _r05(device)
+    _, cpu, _ = _r05("cpu")
+    store = ScenarioStore.from_scenes(cfg, _r05_scenes(cfg, 8, 1), device="cpu")
+    batch = store.sample_batch(torch.Generator().manual_seed(SEED), 8)
+    with torch.no_grad():
+        want = cpu(batch)
+        _zero_counts()
+        got = card({k: v.to(device) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    _expect_counts("trained-weights", (cfg.model.num_decoder_layers, 0, 0, 0))
+    errs = {h: (getattr(got, h).cpu() - getattr(want, h)).abs().max().item()
+            for h in ("action_preds", "rtg_preds", "state_preds")}
+    if not all(math.isfinite(e) and e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"trained-weights: the card's heads differ from the CPU's: {errs}")
+    return (f"{R05.relative_to(ROOT)} step {step}, f32, H = {cfg.model.hidden_dim}/{cfg.model.num_heads}, "
+            f"8 held-out scenes; max |d| card vs CPU " + ", ".join(f"{h} {e:.3g}" for h, e in errs.items())
+            + " (limit 1e-4)")
+
+
+def _held(label: str, value: float, want: float, bound: float, art: str, misses: list) -> None:
+    """One in-distribution check: |value - want| <= bound, printed."""
+    ok = abs(value - want) <= bound
+    print(f"  {label}: {value:.4f}, {art}, |d| {abs(value - want):.4f} <= bound {bound:.4f}: "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        misses.append(label)
+
+
+def _seed_bound(key: str, s0: float, s1: float, n: int) -> float:
+    """The tilt sweep's bound around the mean of the artifact's two seeds:
+    the larger of 3 x |seed0 - seed1|, 3 binomial standard errors over the
+    ``n`` controlled agents (rates), 5% of the mean (ADE)."""
+    mean = (s0 + s1) / 2
+    bound = 3 * abs(s0 - s1)
+    if key == "ade":
+        return max(bound, 0.05 * abs(mean))
+    return max(bound, 3 * math.sqrt(mean * (1 - mean) / n))
+
+
+def _tilt_sweep(device: str = "cuda", n_scenes: int = TILT_SCENES) -> dict:
+    """The artifact's recipe on the port (``tools/make_r05_artifacts.py``
+    leg ``tilt``, corpus ``veh_conflict``): r05_s0, ``n_scenes`` held-out
+    scenes with one crossing pair, streaming, 32 lanes a chunk, veh-veh
+    tilts -50, 0 and 10 at eval seed 0; K1 launched 2 passes x layers x
+    steps a chunk; each metric held to the artifact's two seeds; ADE at
+    -50 above ADE at 10."""
+    import torch
+
+    from ctrl_sim_tpu_torch.data.transforms import get_tilt_logits
+    from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
+
+    cfg, model, _ = _r05(device, **{"eval.rollout_mode": "streaming", "eval.seed": 0})
+    scenes = _r05_scenes(cfg, n_scenes, 1)
+    ev = PolicyEvaluator(cfg, model, lane_batch=32, device=device)
+    chunks = ev.chunks(scenes)
+    n = sum(int(c.sum()) for _, c, _ in chunks)
+    with open(ROOT / "artifacts" / "eval_r05_tilt_sweep.json") as f:
+        art = json.load(f)["veh_conflict"]
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    rows, walls, misses = {}, {}, []
+    for tilt in R05_TILTS:
+        ev.tilt_logits = get_tilt_logits(0.0, tilt, 0.0, cfg.waymo, device=device)
+        _zero_counts()
+        start = time.perf_counter()
+        m = ev.evaluate(scenes)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _expect_counts(f"tilt-sweep {tilt:g}", (0, 0, per_chunk * len(chunks), 0))
+        walls[tilt] = time.perf_counter() - start
+        rows[tilt] = m
+        for key in ("goal", "collision_rate", "ade"):
+            s0, s1 = art[f"seed0_tilt{int(tilt)}"][key], art[f"seed1_tilt{int(tilt)}"][key]
+            _held(f"tilt {tilt:g} {key}", m[key], (s0 + s1) / 2, _seed_bound(key, s0, s1, n),
+                  f"artifact {s0:.4f}/{s1:.4f}", misses)
+    if not rows[-50.0]["ade"] > rows[10.0]["ade"]:
+        misses.append(f"ADE at -50 ({rows[-50.0]['ade']:.4f}) not above ADE at 10 ({rows[10.0]['ade']:.4f})")
+    if misses:
+        raise AssertionError(f"tilt-sweep: out of the artifact's distribution: {misses}")
+    return {"rows": rows, "walls": walls, "n": n, "chunks": len(chunks), "per_chunk": per_chunk,
+            "cfg": cfg, "model": model, "scenes": scenes}
+
+
+def _r05_decode_shape(cfg, model, scenes, gen) -> list[dict]:
+    """K1 at r05's decode shape (a chunk of 32 lanes, f32, H = 64 = 4 x 16)
+    under the masks its streaming rollout gives the two passes of the
+    middle step, against its plain version, timed beside its bound. A
+    kernel of f32 compute over an f32 cache: ``model.kv_cache_dtype`` other
+    than int8 keeps the cache in the compute dtype."""
+    from ctrl_sim_tpu_torch.data import stack_scenarios, to_torch
+    from ctrl_sim_tpu_torch.rollout.setup import recorded_masks
+
+    sc = to_torch(stack_scenarios(scenes[:2], cfg), "cuda")
+    masks = recorded_masks(cfg, model, sc, sc.moving & sc.agent_valid)[cfg.sim.steps // 2]
+    dtype = cfg.model.compute_dtype
+    return [_attention_case(32, *m.shape, cfg.model.hidden_dim, cfg.model.num_heads, dtype, m, gen, graph=True)
+            for m in masks]
+
+
+def _mean_bound(key: str, jax_xs: list, card_xs: list, pairs: int) -> float:
+    """The planner phase's bound on |card mean - JAX mean| over eval seeds:
+    3 standard errors of a difference of two means, from the two packages'
+    own spreads over their seeds; for the rate at least 3 binomial standard
+    errors of that difference over the pairs each mean covers."""
+    se2 = statistics.variance(jax_xs) / len(jax_xs) + statistics.variance(card_xs) / len(card_xs)
+    if key == "ego_cr_w_adv":
+        p = statistics.fmean(jax_xs)
+        se2 = max(se2, p * (1 - p) * (1 / (len(jax_xs) * pairs) + 1 / (len(card_xs) * pairs)))
+    return 3 * math.sqrt(se2)
+
+
+def _planner_trained(device: str = "cuda", n_scenes: int = PLANNER_SCENES) -> dict:
+    """The artifact's planner leg on the port: r05_s0, ``n_scenes`` held-out
+    scenes with two crossing pairs, streaming, the relaxed pair thresholds,
+    adversary veh-veh tilts -10 and -50, at each eval seed of
+    ``PLANNER_JAX_SEEDS`` (the JAX package's readings at those seeds, made by
+    ``tools/r05_planner_seed_spread.py``). The card's mean over the seeds of
+    ``ego_cr_w_adv`` and ``adv_coll_speed`` is held to the JAX package's
+    within ``_mean_bound``. ``artifacts/eval_r05_planner.json``, one run of
+    the JAX package at eval seed 0, is printed beside it: one run is no
+    yardstick for a mean."""
+    import torch
+
+    from ctrl_sim_tpu_torch.config import TiltConfig, _set_dotted
+    from ctrl_sim_tpu_torch.evals.planner_adversary import PlannerAdversaryEvaluator, select_planner_adversary_pair
+
+    cfg, model, _ = _r05(device, **R05_PLANNER)
+    scenes = _r05_scenes(cfg, n_scenes, 2)
+    pairs = sum(select_planner_adversary_pair(cfg, s) is not None for s in scenes)
+    with open(PLANNER_JAX_SEEDS) as f:
+        ref = json.load(f)
+    with open(ROOT / "artifacts" / "eval_r05_planner.json") as f:
+        art = json.load(f)
+    seeds = ref["eval_seeds"]
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    rows, misses = {}, []
+    for name, tilt in (("reference_tilts", -10.0), ("strong_adversary", -50.0)):
+        runs = []
+        start = time.perf_counter()
+        for seed in seeds:
+            ev = PlannerAdversaryEvaluator(_set_dotted(cfg, "eval.seed", seed), model,
+                                           adversary_tilt=TiltConfig(veh_veh_tilt=tilt), lane_batch=32, device=device)
+            _zero_counts()
+            runs.append(ev.evaluate(scenes))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                _expect_counts(f"planner-adversary-trained {tilt:g} seed {seed}",
+                               (0, 0, per_chunk * -(-pairs // 32), 0))
+        m = {k: statistics.fmean(r[k] for r in runs) for k in runs[0]}
+        rows[name] = {**m, "wall_s": time.perf_counter() - start,
+                      "per_seed": {k: [r[k] for r in runs] for k in ("ego_cr_w_adv", "adv_coll_speed")}}
+        for key in ("ego_cr_w_adv", "adv_coll_speed"):
+            card_xs, jax_xs = rows[name]["per_seed"][key], ref[name][key]
+            print(f"  adversary tilt {tilt:g} {key} at eval seeds {', '.join(map(str, seeds))}: card "
+                  + ", ".join(f"{x:.4f}" for x in card_xs) + "; JAX " + ", ".join(f"{x:.4f}" for x in jax_xs),
+                  flush=True)
+            want = statistics.fmean(jax_xs)
+            _held(f"adversary tilt {tilt:g} {key} (mean of {len(seeds)} seeds)", m[key], want,
+                  _mean_bound(key, jax_xs, card_xs, pairs), f"JAX mean {want:.4f}", misses)
+            print(f"    {key}: one JAX run at eval seed 0 (artifacts/eval_r05_planner.json) {art[name][key]:.4f}; "
+                  f"card seed 0 {card_xs[0]:.4f}; not held", flush=True)
+    if misses:
+        raise AssertionError(f"planner-adversary-trained: out of the JAX package's distribution: {misses}")
+    return {"rows": rows, "pairs": pairs, "seeds": seeds}
+
+
+def _examples() -> str:
+    """The port's three examples as subprocesses on the card, each exit 0."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    done = []
+    for script in ("torch_replay_rollout.py", "torch_tilt_control.py", "torch_adversarial_scenarios.py"):
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script)], capture_output=True, text=True,
+                              timeout=600, env=env, cwd=str(ROOT))
+        for line in proc.stdout.splitlines():
+            print(f"  {script}: {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"examples/{script} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        done.append(f"{script} {time.perf_counter() - start:.1f} s")
+    return "exit 0: " + ", ".join(done)
+
+
+def _cpu_model() -> str:
+    """This machine's CPU model (``/proc/cpuinfo``, else ``lscpu``) and its
+    core count, for the loaders' files/s."""
+    import os
+
+    name = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((line.split(":", 1)[1].strip() for line in f if line.startswith("model name")), "")
+    except OSError:
+        pass
+    if not name or name.lower() == "unknown":
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                         if line.startswith("Model name")), name)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return f"{name or 'an unnamed CPU'}, {os.cpu_count()} cores"
+
+
+def _scenes_equal(a, b, tol: float) -> float:
+    """Max float difference of two scenes' fields (headings modulo 2 pi);
+    integers, masks and light states must be equal and are checked here."""
+    import dataclasses
+
+    import numpy as np
+
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not isinstance(x, np.ndarray) and not isinstance(y, np.ndarray):
+            continue
+        if x is None or y is None or x.shape != y.shape:
+            raise AssertionError(f"json-data: the loaders disagree on {f.name}")
+        if np.issubdtype(x.dtype, np.floating):
+            diff = x.astype(np.float64) - y
+            if f.name.endswith("heading"):  # a heading of pi may be parsed as -pi
+                diff = (diff + np.pi) % (2 * np.pi) - np.pi
+            worst = max(worst, float(np.abs(diff).max(initial=0.0)))
+        elif not np.array_equal(x, y):
+            raise AssertionError(f"json-data: the loaders disagree on {f.name}")
+    if worst > tol:
+        raise AssertionError(f"json-data: the loaders' floats differ by {worst} > {tol}")
+    return worst
+
+
+def _json_data(device: str = "cuda", n: int = JSON_SCENES, extra: dict | None = None) -> str:
+    """``n`` scenes of the default config (12 agents, ``eval_sim``'s arena,
+    one crossing pair) written in the raw dialect and, replayed on the card,
+    in the physics dialect; read back by both loaders (files/s on this
+    machine's CPU, fields held equal); ``train.py --data_dir --val_dir``
+    for 3 full-width steps (16 K3 and 16 K4 a step, plus one validation
+    forward of 4 K3); ``eval_sim.py --data_dir`` on 8 of them, streaming
+    (K1) and exact (K3); and the focal groups the loaded scenes fall into.
+    ``extra``: overrides of the config and of every CLI call (a smaller
+    model for a rehearsal on the CPU)."""
+    import random
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch import eval_sim, train
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.export import export_physics_json, export_raw_json
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore, load_json_dir
+    from ctrl_sim_tpu_torch.evals.evaluator import select_vehicles_to_evaluate
+    from ctrl_sim_tpu_torch.rollout.groups import build_focal_groups
+
+    cfg = preset("ctrl_sim")
+    for key, value in (extra or {}).items():
+        cfg = _set_dotted(cfg, key, value)
+    flags = [x for key, value in (extra or {}).items() for x in ("-o", f"{key}={json.dumps(value)}")]
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_json_"))
+    raw_dir, val_dir, phys_dir = work / "raw", work / "val", work / "physics"
+    for d in (raw_dir, val_dir, phys_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    scenes = [synthetic_scenario(cfg, seed=s, num_agents=12, conflict_pairs=1) for s in range(n)]
+    for i, scene in enumerate(scenes):
+        export_raw_json(scene, str((raw_dir if i < n - 8 else val_dir) / f"scene_{i:04d}.json"))
+    store = ScenarioStore.from_scenes(cfg, scenes, device=device)
+    for e in range(n):
+        export_physics_json(cfg, store.scenario, store.offline, e, str(phys_dir / f"scene_{e:04d}_physics.json"))
+    del store
+
+    from ctrl_sim_tpu_torch.data import native_loader
+
+    start = time.perf_counter()
+    native_loader.build()  # g++ at first use: kept out of the files/s
+    lines = [f"{n} scenes a dialect on {_cpu_model()}; native loader built in {time.perf_counter() - start:.2f} s"]
+    loaded = {}
+    for dialect, dirs in (("raw", (raw_dir, val_dir)), ("physics", (phys_dir,))):
+        rates = {}
+        for native in (False, True):
+            start = time.perf_counter()
+            got = [s for d in dirs for s in load_json_dir(cfg, str(d), native=native)]
+            rates[native] = len(got) / (time.perf_counter() - start)
+            loaded[dialect, native] = got
+        worst = max(_scenes_equal(a, b, 1e-5) for a, b in zip(loaded[dialect, False], loaded[dialect, True]))
+        lines.append(f"{dialect}: Python loader {rates[False]:.1f} files/s, native {rates[True]:.1f} files/s, "
+                     f"fields equal (floats within {worst:.3g})")
+
+    per_step = cfg.model.num_decoder_layers * 4
+    _zero_counts()
+    start = time.perf_counter()
+    train.main(["--data_dir", str(raw_dir), "--val_dir", str(val_dir), "--steps", "3", "--val_every", "3",
+                "--log_every", "1", "--save_dir", str(work / "ckpt"), "--device", device,
+                "-o", "train.accum_steps=4", *flags])
+    torch.cuda.synchronize()
+    _expect_counts("json-data train", (3 * per_step + cfg.model.num_decoder_layers, 3 * per_step, 0, 0))
+    lines.append(f"train.py --data_dir ({n - 8} scenes) --val_dir (8) 3 steps + 1 validation in "
+                 f"{time.perf_counter() - start:.1f} s, K3/K4 {_counts()[:2]}")
+
+    per_chunk = 2 * cfg.model.num_decoder_layers * cfg.sim.steps
+    for mode, over, expected in (
+            ("streaming", ["-o", "eval.rollout_mode=streaming", "-o", "waymo.episode_start_normalization=true",
+                           "-o", "eval.agent_slots=16"], (0, 0, per_chunk, 0)),
+            ("exact", [], (per_chunk, 0, 0, 0))):
+        _zero_counts()
+        start = time.perf_counter()
+        metrics = eval_sim.main(["--data_dir", str(val_dir), "--device", device, *over, *flags])
+        torch.cuda.synchronize()
+        _expect_counts(f"json-data eval_sim {mode}", expected)
+        _check_metrics(f"json-data eval_sim {mode}", metrics, POLICY_RATES)
+        lines.append(f"eval_sim.py --data_dir (8 scenes) {mode} {time.perf_counter() - start:.1f} s, goal "
+                     f"{metrics['goal']:.4f}, ade {metrics['ade']:.4f}, (K3, K4, K1, K2) {_counts()}")
+
+    rng, groups = random.Random(cfg.eval.seed), collections.Counter()
+    for scene in loaded["raw", False]:
+        controlled = np.zeros((1, scene.traj_position.shape[0]), dtype=bool)
+        controlled[0, select_vehicles_to_evaluate(cfg, scene, rng)] = True
+        spec = build_focal_groups(cfg, scene.traj_position[None], scene.traj_valid[None], scene.agent_valid[None],
+                                  controlled, device="cpu")
+        groups[int(spec.group_valid.sum())] += 1
+    lines.append("focal groups a loaded scene (multi_agent mode): "
+                 + ", ".join(f"{k}: {v} scenes" for k, v in sorted(groups.items())))
+    shutil.rmtree(work, ignore_errors=True)
+    return "; ".join(lines)
+
+
+
 def _rollout(phase: str, cfg, model, sc, controlled, tilt) -> tuple[float, int, str]:
     """One full-width ``run_streaming`` chunk on the card, the decode
     kernels' counts set to 0 just before it and read just after: its cache's
@@ -1116,6 +1602,46 @@ def _decode_passes(cfg) -> int:
     return 3 if cfg.eval.streaming_passes >= 3 else 2
 
 
+def _trained_phases(gen) -> list[dict]:
+    """The phases on the trained r05 checkpoint and on scene JSONs:
+    trained-weights, tilt-sweep, planner-adversary-trained, examples,
+    json-data. Returns K1's rows at r05's decode shape."""
+    t0 = time.perf_counter()
+    _phase("trained-weights", t0, _trained_weights())
+
+    t0 = time.perf_counter()
+    sweep = _tilt_sweep()
+    r05_k1 = _r05_decode_shape(sweep["cfg"], sweep["model"], sweep["scenes"], gen)
+    for row in r05_k1:
+        print(f"  K1 at r05's decode shape (f32 kernel, decode_attention_kernel<16>), {row['shape']}: err "
+              f"{row['max_abs_err']:.3g}, kernel {row['ms']:.4f} ms (raw launch in a CUDA graph; eager wrapper "
+              f"{row['wrapper_ms']:.4f} ms), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (in a CUDA graph)", flush=True)
+    rows = sweep["rows"]
+    _phase("tilt-sweep", t0,
+           f"r05_s0, {TILT_SCENES} held-out scenes (seed {R05_SEED0}, one crossing pair), {sweep['n']} controlled "
+           f"agents in {sweep['chunks']} chunks of 32, streaming; " + "; ".join(
+               f"tilt {t:g}: goal {m['goal']:.4f}, collision {m['collision_rate']:.4f}, ade {m['ade']:.4f}, "
+               f"{sweep['walls'][t]:.2f} s" for t, m in rows.items())
+           + f"; K1 {sweep['per_chunk']} launches a chunk; every metric within its bound of the artifact")
+
+    t0 = time.perf_counter()
+    planner = _planner_trained()
+    _phase("planner-adversary-trained", t0,
+           f"r05_s0, {PLANNER_SCENES} held-out scenes with two crossing pairs, {planner['pairs']} (ego, adversary) "
+           f"pairs, streaming, means over eval seeds {planner['seeds']}; " + "; ".join(
+               f"{name}: ego_cr_w_adv {m['ego_cr_w_adv']:.4f}, adv_coll_speed {m['adv_coll_speed']:.4f}, "
+               f"ego_goal {m['ego_goal']:.4f}, {m['wall_s']:.2f} s" for name, m in planner["rows"].items())
+           + "; within the bounds of the JAX package's means")
+
+    t0 = time.perf_counter()
+    _phase("examples", t0, _examples())
+
+    t0 = time.perf_counter()
+    _phase("json-data", t0, _json_data())
+    return r05_k1
+
+
 def main() -> int:
     import torch
 
@@ -1125,6 +1651,7 @@ def main() -> int:
     try:
         from ctrl_sim_tpu_torch.ops import attention, build
         from ctrl_sim_tpu_torch.ops import flash_attention as fa
+        from ctrl_sim_tpu_torch.ops.heads import KERNEL_HEAD_DIMS, kernel_head_dim
         from ctrl_sim_tpu_torch.ops.masks import stream_step_masks
         from ctrl_sim_tpu_torch.rollout.setup import FAMILY_CASES, LANES, SLOTS, decode_masks, full_width_rollout
     except ImportError as e:
@@ -1154,7 +1681,7 @@ def main() -> int:
         for kernel, count in sorted(hmma.items()):
             print(f"  {source}: {kernel}: {count} HMMA")
         for name in names:
-            for d in fa.HEAD_DIMS:  # every instance of the head width (and of the row tiles)
+            for d in KERNEL_HEAD_DIMS:  # every instance of the head width (and of the row tiles)
                 counts = [c for k, c in hmma.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
                 if not counts or not all(counts):
                     bare.append(f"{name}<{d}>")
@@ -1179,6 +1706,8 @@ def main() -> int:
         if dead.any(dim=1).all():
             raise AssertionError("expected fully masked rows in the t = 0 mask")
         cases[f"masked rows {dtype}"] = _attention_case(LANES, *dead.shape, 256, 8, dtype, dead, gen)
+        for d in WIDTH_CASES:  # head widths with no kernel instance: each head padded to the next
+            cases[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen)
     for name, row in cases.items():
         print(f"  K1 {name}: {row['shape']} err {row['max_abs_err']:.3g} "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -1192,6 +1721,8 @@ def main() -> int:
             q8[f"{name} {dtype}"] = _attention_case(LANES, *mask.shape, 256, 8, dtype, mask, gen, int8=True)
         q8[f"narrow {dtype}"] = _attention_case(64, 12, 384, 64, 4, dtype, narrow, gen, int8=True)
         q8[f"masked rows {dtype}"] = _attention_case(LANES, *dead.shape, 256, 8, dtype, dead, gen, int8=True)
+        for d in WIDTH_CASES:
+            q8[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen, int8=True)
     for name, row in q8.items():
         print(f"  K2 {name}: {row['shape']} err {row['max_abs_err']:.3g} "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (SDPA over "
@@ -1239,6 +1770,12 @@ def main() -> int:
     flash["wide bfloat16"] = _flash_case(4, 32, 24, 3, 4, 64, "bfloat16", 0.1, gen)
     flash["wide ragged strict bfloat16 p=0"] = _flash_case(2, 9, 7, 3, 2, 64, "bfloat16", 0.0, gen, own=True)
     flash["narrow window 2-token bfloat16"] = _flash_case(3, 20, 5, 2, 4, 16, "bfloat16", 0.1, gen, window=3)
+    for d in WIDTH_CASES:  # head widths with no kernel instance: each head padded to the next
+        flash[f"d={d} float32"] = _flash_case(4, 12, 24, 3, 4, d, "float32", 0.1, gen)
+        flash[f"d={d} ragged strict bfloat16"] = _flash_case(2, 9, 7, 3, 4, d, "bfloat16", 0.1, gen, own=True)
+    widths = {d: _flash_width_case(gen, d) for d in WIDTH_CASES}
+    for d, row in widths.items():
+        flash[f"d={d} train layout bfloat16"] = row
     for name, row in flash.items():
         print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, "
               f"gradient err {row['grad_err']:.3g} of max |grad| ({row['grad_abs_err']:.3g} absolute)")
@@ -1249,6 +1786,10 @@ def main() -> int:
     print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms at p=0.1, {ft['bwd_ms_p0']:.4f} ms at p=0; "
           f"bound {bwd_bound:.4f} ms ({bwd_by}), plain (autograd) {ft['plain_bwd_ms']:.4f} ms, library (SDPA "
           f"backward, p=0) {ft['library_bwd_ms']:.4f} ms")
+    for d, row in widths.items():
+        print(f"  K3/K4 at d = {d} (padded to {kernel_head_dim(d)}), {row['shape']}: K3 {row['fwd_ms']:.4f} ms, bound "
+              f"{row['fwd_bound_ms']:.4f} ms ({row['fwd_bound_by']}); K4 {row['bwd_ms']:.4f} ms, bound "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}); bounds at the true width")
     _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
 
     t0 = time.perf_counter()
@@ -1364,6 +1905,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _phase("finetune", t0, _finetune(store))
+    del store
+    torch.cuda.empty_cache()
+    r05_k1 = _trained_phases(gen)
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
@@ -1385,6 +1929,15 @@ def main() -> int:
                  "launches_per_step": fam_train[name.split(" ")[0]]["launches_per_step"]}
                 for name, r in fam_flash.items()]
 
+    def width_rows(rows):
+        """K1's or K2's rows at the head widths without an instance (padded)."""
+        return [{"case": name, **r} for name, r in rows.items() if name.startswith("d=")]
+
+    def flash_width_rows(key):
+        return [{"case": f"d={d}", "shape": r["shape"], "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                 "bound_by": r[f"{key}_bound_by"], "padded_to": kernel_head_dim(d),
+                 "max_abs_err": r["out_err"] if key == "fwd" else r["grad_abs_err"]} for d, r in widths.items()]
+
     print(json.dumps({"kernels": [
         {
             "name": "cached_decode_attention",
@@ -1404,6 +1957,8 @@ def main() -> int:
             "implementation": DECODE_IMPLEMENTATION,
             "family_shapes": decode_family_rows(fam_k1, {"dt": "dt", "il": "il", "trajeglish": "trajeglish",
                                                            "3-pass": "3-pass", "3-pass t=0": "3-pass"}),
+            "head_width_cases": width_rows(cases),
+            "r05_shape": [{**r, "kernel": "decode_attention_kernel<16> (f32)"} for r in r05_k1],
         },
         {
             "name": "cached_decode_attention_q8",
@@ -1422,6 +1977,7 @@ def main() -> int:
                        "not the same function, it reads twice K2's bytes",
             "rollout_s": rollout_s["rollout-int8"],
             "family_shapes": decode_family_rows(fam_k2, {"dt": "dt-int8"}),
+            "head_width_cases": width_rows(q8),
             "implementation": DECODE_IMPLEMENTATION + "; int8 chunks widened to bf16 in shared memory, "
                               "k_scale on the scores, v_scale on the weights before their bf16 rounding",
         },
@@ -1442,6 +1998,7 @@ def main() -> int:
             "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("fwd"),
+            "head_width_cases": flash_width_rows("fwd"),
             "exact_eval_shape": {**k3_eval, "launches_per_chunk": ev_launches},
             "exact_eval_one_group_shape": {**k3_b32, "launches_per_chunk": None},
             "multigroup_eval_shape": {**k3_multigroup, "launches_per_chunk": ev_launches},
@@ -1463,6 +2020,7 @@ def main() -> int:
             "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("bwd"),
+            "head_width_cases": flash_width_rows("bwd"),
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -361,6 +361,26 @@ def load_config(overrides: dict | None = None) -> Config:
     return cfg
 
 
+def config_from_dict(data: dict) -> Config:
+    """The Config a ``config.json`` snapshot describes (``Config.to_dict``
+    of the port or of the JAX package). Sections the port does not have
+    (the JAX package's CTG++ settings) are left out; a field the port does
+    not know in a section it has raises."""
+    cfg = Config()
+
+    def walk(prefix: str, tree: dict) -> None:
+        nonlocal cfg
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(f"{prefix}{key}.", value)
+            else:
+                cfg = _set_dotted(cfg, f"{prefix}{key}", value)
+
+    sections = {f.name for f in dataclasses.fields(Config)}
+    walk("", {k: v for k, v in data.items() if k in sections})
+    return cfg
+
+
 _NO_RTG_HEADS = {"model.predict_future_states": False, "model.predict_rtg": False, "policy.predict_rtgs": False}
 # the reference's cfgs/model/{dt,il,trajeglish}.yaml
 _PRESETS = {

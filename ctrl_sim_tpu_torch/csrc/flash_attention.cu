@@ -1165,7 +1165,9 @@ cudaError_t dispatch(bool backward, bool bf16, const Args& a, cudaStream_t strea
   }
 }
 
-Args make_args(int B, int n, int H, int heads, int A, int K, int state_index, int own,
+// H is the row width of the (head-padded) tensors, head_dim the true width
+// of a head: the softmax scale is that of the true width
+Args make_args(int B, int n, int H, int heads, int head_dim, int A, int K, int state_index, int own,
                int has_window, int window, float dropout_p, unsigned threshold) {
   Args a = {};
   a.B = B;
@@ -1173,20 +1175,23 @@ Args make_args(int B, int n, int H, int heads, int A, int K, int state_index, in
   a.H = H;
   a.heads = heads;
   a.spec = MaskSpec{A, K, state_index, own, has_window, window};
-  a.scale = 1.0f / sqrtf((float)(H / heads));
+  a.scale = 1.0f / sqrtf((float)head_dim);
   a.use_dropout = dropout_p > 0.f;
   a.inv_keep = a.use_dropout ? 1.0f / (1.0f - dropout_p) : 1.0f;
   a.threshold = threshold;
   return a;
 }
 
-bool bad_shape(int B, int n, int H, int heads, int A, int K) {
-  return B <= 0 || n <= 0 || heads <= 0 || H % heads != 0 || A <= 0 || K <= 0;
+bool bad_shape(int B, int n, int H, int heads, int head_dim, int A, int K) {
+  return B <= 0 || n <= 0 || heads <= 0 || H % heads != 0 || head_dim <= 0 || head_dim > H / heads ||
+         A <= 0 || K <= 0;
 }
 
 }  // namespace
 
 // K3. q, k, v, out [B, n, H] contiguous and 16-byte aligned on the device,
+// H = heads x an instantiated head width (16, 32 or 64), of which the first
+// head_dim columns of each head are the true ones (the rest zero),
 // of one type: float32 (is_bf16 = 0, CUDA cores) or bfloat16 (is_bf16 = 1,
 // tensor cores); lse [B, heads, n] float32; seed one int64 on the device
 // (its low 32 bits key the dropout hash; read only when dropout_p > 0 but
@@ -1196,11 +1201,12 @@ bool bad_shape(int B, int n, int H, int heads, int A, int K) {
 // unused (may be null) for float32. Returns the cudaError_t of the launch.
 extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, const void* seed,
                                   const void* table, void* out, void* lse, int B, int n, int H,
-                                  int heads, int A, int K, int state_index, int own, int has_window,
-                                  int window, float dropout_p, unsigned threshold, int is_bf16,
-                                  void* stream) {
-  if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
+                                  int heads, int head_dim, int A, int K, int state_index, int own,
+                                  int has_window, int window, float dropout_p, unsigned threshold,
+                                  int is_bf16, void* stream) {
+  if (bad_shape(B, n, H, heads, head_dim, A, K)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, n, H, heads, head_dim, A, K, state_index, own, has_window, window, dropout_p,
+                     threshold);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1218,11 +1224,12 @@ extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, c
 extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const void* lse, const void* seed, const void* table,
                                   void* dq, void* dk, void* dv, void* delta, int B, int n, int H,
-                                  int heads, int A, int K, int state_index, int own, int has_window,
-                                  int window, float dropout_p, unsigned threshold, int is_bf16,
-                                  void* stream) {
-  if (bad_shape(B, n, H, heads, A, K)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(B, n, H, heads, A, K, state_index, own, has_window, window, dropout_p, threshold);
+                                  int heads, int head_dim, int A, int K, int state_index, int own,
+                                  int has_window, int window, float dropout_p, unsigned threshold,
+                                  int is_bf16, void* stream) {
+  if (bad_shape(B, n, H, heads, head_dim, A, K)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(B, n, H, heads, head_dim, A, K, state_index, own, has_window, window, dropout_p,
+                     threshold);
   a.q = q;
   a.k = k;
   a.v = v;

@@ -53,13 +53,17 @@ def generate_offline_data(cfg: Config, scenario: Scenario) -> OfflineArrays:
     states, actions, rewards = [], [], []
     for t in range(cfg.sim.steps):
         bodies = state.bodies
+        # GT next, its index clamped to the last recorded state as the JAX
+        # replay's is inside jit: a physics-dialect scene records steps
+        # states, one fewer than the replay reads
+        nxt = min(t + 1, tp.shape[2] - 1)
         # inverse-bicycle action from the simulated state toward GT next
         accel, steer = inverse_bicycle_action(
-            tp[:, :, t + 1], th[:, :, t + 1], ts[:, :, t + 1],
+            tp[:, :, nxt], th[:, :, nxt], ts[:, :, nxt],
             bodies.position, bodies.heading, bodies.speed, length, cfg.sim.dt,
         )
         # an action is valid iff GT exists at t and t+1 and the chain is unbroken
-        act_valid = state.alive & tv[:, :, t] & tv[:, :, t + 1]
+        act_valid = state.alive & tv[:, :, t] & tv[:, :, nxt]
         accel = torch.where(act_valid, accel, 0.0)
         steer = torch.where(act_valid, steer, 0.0)
 

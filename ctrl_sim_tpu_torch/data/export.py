@@ -5,6 +5,10 @@ host-side numpy and the standard library).
   reference's offline-RL ``*_physics.json`` dialect
   (data/generate_offline_rl_dataset.py:135-142) so datasets generated here
   are readable by the reference stack and vice versa.
+- ``export_raw_json``: write one scene in the raw Nocturne Waymo dialect
+  (``formatted_json_v2_no_tl_*``: headings in degrees, ``valid`` flags,
+  ``goalPosition``), which ``data/scenario.py:load_scenario_json`` reads
+  back to the same scene; no counterpart in the JAX package.
 - ``split_val_test``: the seeded val/test split (data/split_val_test.py):
   shuffle with seed 2024, take 2500 test scenes, emit the filename lists.
 - ``filter_valid_cat``: drop CAT scenarios whose adversary trajectory never
@@ -102,6 +106,45 @@ def export_physics_json(
             )
 
     data = {"name": os.path.basename(path), "objects": objects, "roads": roads}
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
+def export_raw_json(scene: Scenario, path: str, tl_states: list | None = None) -> None:
+    """Write one (unstacked, numpy) scene as a raw-dialect JSON: its valid
+    agents as vehicles (heading in degrees, velocity from speed and
+    heading), its road edges as whole polylines, every other road polyline
+    as one road (a stop sign as a point), and ``tl_states`` if given."""
+    objects = []
+    for a in np.flatnonzero(scene.agent_valid):
+        heading = scene.traj_heading[a].astype(np.float64)
+        speed = scene.traj_speed[a].astype(np.float64)
+        objects.append({
+            "type": _TYPE_NAMES.get(int(scene.agent_type[a]), "vehicle"),
+            "position": [{"x": float(x), "y": float(y)} for x, y in scene.traj_position[a]],
+            "velocity": [{"x": float(v * np.cos(h)), "y": float(v * np.sin(h))} for v, h in zip(speed, heading)],
+            "heading": [float(h) for h in np.rad2deg(heading)],
+            "valid": [bool(v) for v in scene.traj_valid[a]],
+            "length": float(scene.length[a]),
+            "width": float(scene.width[a]),
+            "goalPosition": {"x": float(scene.goal_position[a, 0]), "y": float(scene.goal_position[a, 1])},
+        })
+    roads = []
+    for poly, valid in zip(scene.edge_polylines, scene.edge_poly_valid):
+        if valid.any():
+            roads.append({"type": "road_edge", "geometry": [{"x": float(x), "y": float(y)} for x, y in poly[valid]]})
+    for pts, onehot, valid in zip(scene.road_points, scene.road_types, scene.road_valid):
+        kind = _ROAD_NAMES.get(int(np.argmax(onehot)), "other")
+        pts = pts[pts[:, 2] > 0]
+        if not valid or kind == "road_edge" or len(pts) == 0:
+            continue
+        if kind == "stop_sign":
+            roads.append({"type": kind, "geometry": {"x": float(pts[0, 0]), "y": float(pts[0, 1])}})
+        else:
+            roads.append({"type": kind, "geometry": [{"x": float(x), "y": float(y)} for x, y, _ in pts]})
+    data = {"name": os.path.basename(path), "objects": objects, "roads": roads}
+    if tl_states:
+        data["tl_states"] = tl_states
     with open(path, "w") as f:
         json.dump(data, f)
 

@@ -1,15 +1,27 @@
-"""Scenario data model: dense numpy struct-of-arrays, and its torch twin.
+"""Scenario data model: Waymo-Nocturne JSON -> dense numpy
+struct-of-arrays, and its torch twin.
 
-A copy of the JAX package's ``ctrl_sim_tpu/data/scenario.py`` restricted to
-what the streaming rollout reads: the ``Scenario`` dataclass, ``_finalize``
-(goal override, moving-object classification, road chunking, road-edge
-packing) and ``stack_scenarios``. Scenes stay numpy until ``to_torch`` moves
-every array field onto one device.
+A copy of the JAX package's ``ctrl_sim_tpu/data/scenario.py``: the
+``Scenario`` dataclass, ``_finalize`` (goal override, moving-object
+classification, road chunking, road-edge packing, traffic lights), the two
+JSON dialects of ``load_scenario_json`` and ``stack_scenarios``. Scenes
+stay numpy until ``to_torch`` moves every array field onto one device.
+
+The dialects, as in the reference:
+
+- raw Nocturne Waymo (``formatted_json_v2_no_tl_*``): per-object
+  ``position`` / ``heading`` (degrees) / ``velocity`` / ``valid`` arrays
+  plus ``goalPosition``; headings converted with Radians+NormalizeAngle
+  (scenario.cc:930-931); optional ``tl_states``;
+- offline-RL physics JSON (``*_physics.json``): recorded rollout streams
+  with radian headings, per-step 8-component rewards, existence flags
+  (data/generate_offline_rl_dataset.py:60-142).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -67,6 +79,14 @@ class Scenario:
     edge_seg_p0: np.ndarray  # [S, 2]
     edge_seg_p1: np.ndarray  # [S, 2]
     edge_seg_valid: np.ndarray  # [S] bool
+    # optional recorded streams (physics JSON only)
+    rewards: np.ndarray | None = None  # [A, T, 8]
+    actions: np.ndarray | None = None  # [A, T, 2] (accel, steer)
+    # traffic lights (scenario.cc:222-241; None when the JSON has no
+    # ``tl_states``: the CtRL-Sim datasets are the no-TL Waymo exports)
+    tl_position: np.ndarray | None = None  # [L, 2]
+    tl_state: np.ndarray | None = None  # [L, T1] int8 (traffic_light.h:20-30)
+    tl_valid: np.ndarray | None = None  # [L] bool
     name: str = ""
 
 
@@ -191,6 +211,9 @@ def _finalize(
     goal_speed: np.ndarray,
     roads: Sequence[dict],
     name: str,
+    rewards: np.ndarray | None = None,
+    actions: np.ndarray | None = None,
+    tl_states: Sequence[dict] | None = None,
 ) -> Scenario:
     goal_position, goal_heading, goal_speed = _goal_override(
         traj_position, traj_heading, traj_speed, traj_valid,
@@ -213,6 +236,13 @@ def _finalize(
 
     road_points, road_types, edge_polylines = _chunk_roads(roads, cfg)
     polylines, poly_valid, seg_p0, seg_p1, seg_valid = _pack_edges(edge_polylines, cfg)
+
+    # traffic lights (scenario.cc:222-241): dense per-step state streams
+    tl_position = tl_state = tl_valid = None
+    if tl_states:
+        from ctrl_sim_tpu_torch.env.traffic_lights import parse_tl_states_np
+
+        tl_position, tl_state, tl_valid = parse_tl_states_np(tl_states, traj_position.shape[1])
 
     A = traj_position.shape[0]
     return Scenario(
@@ -237,7 +267,104 @@ def _finalize(
         edge_seg_p0=seg_p0.astype(np.float32),
         edge_seg_p1=seg_p1.astype(np.float32),
         edge_seg_valid=seg_valid,
+        rewards=None if rewards is None else rewards.astype(np.float32),
+        actions=None if actions is None else actions.astype(np.float32),
+        tl_position=tl_position,
+        tl_state=tl_state,
+        tl_valid=tl_valid,
         name=name,
+    )
+
+
+def load_scenario_json(path_or_data: str | dict, cfg: Config) -> Scenario:
+    """Load either JSON dialect into a Scenario."""
+    if isinstance(path_or_data, str):
+        with open(path_or_data) as f:
+            data = json.load(f)
+        name = path_or_data
+    else:
+        data = path_or_data
+        name = data.get("name", "")
+    if "existence" in data["objects"][0]:
+        return _load_physics_json(data, cfg, name)
+    return _load_raw_json(data, cfg, name)
+
+
+def _load_raw_json(data: dict, cfg: Config, name: str) -> Scenario:
+    """Raw Nocturne Waymo JSON (scenario.cc:893-1001 LoadObjects). Only
+    vehicles are loaded (unless ``sim.allow_non_vehicles``), and only
+    objects valid at start_time = 0."""
+    objects = [
+        o for o in data["objects"]
+        if (cfg.sim.allow_non_vehicles or o["type"].lower() == "vehicle") and bool(o["valid"][0])
+    ]
+    A = len(objects)
+    T1 = len(objects[0]["position"]) if A else cfg.sim.steps + 1
+    traj_position = np.zeros((A, T1, 2))
+    traj_heading = np.zeros((A, T1))
+    traj_speed = np.zeros((A, T1))
+    traj_valid = np.zeros((A, T1), dtype=bool)
+    length, width = np.zeros(A), np.zeros(A)
+    agent_type = np.zeros(A, dtype=np.int64)
+    goal_position = np.zeros((A, 2))
+    goal_heading, goal_speed = np.zeros(A), np.zeros(A)
+    for a, obj in enumerate(objects):
+        pos = np.array([[p["x"], p["y"]] for p in obj["position"]])
+        vel = np.array([[v["x"], v["y"]] for v in obj["velocity"]])
+        heading = np.mod(np.deg2rad(np.array(obj["heading"], dtype=np.float64)), 2 * np.pi)
+        heading = np.where(heading > np.pi, heading - 2 * np.pi, heading)
+        valid = np.array(obj["valid"], dtype=bool)
+        traj_position[a] = pos
+        traj_heading[a] = heading
+        traj_speed[a] = np.linalg.norm(vel, axis=-1)
+        traj_valid[a] = valid
+        length[a] = obj["length"]
+        width[a] = obj["width"]
+        agent_type[a] = OBJECT_TYPES.get(obj["type"].lower(), 4)
+        gp = obj.get("goalPosition", {"x": 0.0, "y": 0.0})
+        goal_position[a] = [gp["x"], gp["y"]]
+        # target heading/speed = last valid heading/speed (scenario.cc:942-945)
+        valid_idx = np.where(valid)[0]
+        if len(valid_idx) > 0:
+            goal_heading[a] = heading[valid_idx[-1]]
+            goal_speed[a] = traj_speed[a, valid_idx[-1]]
+    return _finalize(
+        cfg, traj_position, traj_heading, traj_speed, traj_valid, length, width, agent_type,
+        goal_position, goal_heading, goal_speed, data["roads"], name, tl_states=data.get("tl_states"),
+    )
+
+
+def _load_physics_json(data: dict, cfg: Config, name: str) -> Scenario:
+    """Offline-RL physics JSON (data/generate_offline_rl_dataset.py:60-142)."""
+    objects = data["objects"]
+    A, T = len(objects), len(objects[0]["position"])
+    traj_position = np.zeros((A, T, 2))
+    traj_heading = np.zeros((A, T))
+    traj_speed = np.zeros((A, T))
+    traj_valid = np.zeros((A, T), dtype=bool)
+    length, width = np.zeros(A), np.zeros(A)
+    agent_type = np.zeros(A, dtype=np.int64)
+    goal_position = np.zeros((A, 2))
+    goal_heading, goal_speed = np.zeros(A), np.zeros(A)
+    rewards = np.zeros((A, T, 8))
+    actions = np.zeros((A, T, 2))
+    for a, obj in enumerate(objects):
+        traj_position[a] = np.array([[p["x"], p["y"]] for p in obj["position"]])
+        vel = np.array([[v["x"], v["y"]] for v in obj["velocity"]])
+        traj_heading[a] = np.array(obj["heading"])
+        traj_speed[a] = np.linalg.norm(vel, axis=-1)
+        traj_valid[a] = np.array(obj["existence"], dtype=bool).reshape(-1)
+        length[a] = obj["length"]
+        width[a] = obj["width"]
+        agent_type[a] = OBJECT_TYPES.get(obj["type"].lower(), 4)
+        goal_position[a] = [obj["goal_position"]["x"], obj["goal_position"]["y"]]
+        goal_heading[a] = obj["goal_heading"]
+        goal_speed[a] = obj["goal_speed"]
+        rewards[a] = np.array(obj["reward"])
+        actions[a] = np.stack([np.array(obj["acceleration"]), np.array(obj["steering"])], axis=-1)
+    return _finalize(
+        cfg, traj_position, traj_heading, traj_speed, traj_valid, length, width, agent_type,
+        goal_position, goal_heading, goal_speed, data["roads"], name, rewards=rewards, actions=actions,
     )
 
 
@@ -252,11 +379,8 @@ def pad_scenarios(scenarios: list[Scenario], cfg: Config) -> list[Scenario]:
     K = max(s.edge_polylines.shape[0] for s in scenarios)
     V = max(s.edge_polylines.shape[1] for s in scenarios)
     T1 = max(s.traj_position.shape[1] for s in scenarios)
-
-    out = []
-    for s in scenarios:
-        out.append(_pad_one(s, A, P, K, V, T1))
-    return out
+    tl_L = max((s.tl_position.shape[0] for s in scenarios if s.tl_position is not None), default=0)
+    return [_pad_one(s, A, P, K, V, T1, tl_L) for s in scenarios]
 
 
 def _pad_to(arr: np.ndarray, shape: tuple[int, ...], fill: float = 0.0) -> np.ndarray:
@@ -265,9 +389,21 @@ def _pad_to(arr: np.ndarray, shape: tuple[int, ...], fill: float = 0.0) -> np.nd
 
 
 def _pad_one(
-    s: Scenario, A: int, P: int, K: int, V: int, T1: int
+    s: Scenario, A: int, P: int, K: int, V: int, T1: int, tl_L: int = 0
 ) -> Scenario:
     road_types = _pad_to(s.road_types, (P, 8), fill=-1.0)
+    # traffic lights: scenes without lights get all-invalid pad rows when the
+    # batch holds any lights (so the light fields stack to one shape)
+    tl_fields = dict(tl_position=None, tl_state=None, tl_valid=None)
+    if tl_L > 0:
+        tl_pos = s.tl_position if s.tl_position is not None else np.zeros((0, 2), np.float32)
+        tl_st = s.tl_state if s.tl_state is not None else np.zeros((0, T1), np.int8)
+        tl_va = s.tl_valid if s.tl_valid is not None else np.zeros((0,), bool)
+        tl_fields = dict(
+            tl_position=_pad_to(tl_pos, (tl_L, 2)).astype(np.float32),
+            tl_state=_pad_to(tl_st, (tl_L, T1)).astype(np.int8),
+            tl_valid=_pad_to(tl_va, (tl_L,)).astype(bool),
+        )
     return dataclasses.replace(
         s,
         traj_position=_pad_to(s.traj_position, (A, T1, 2), DEAD_POSITION),
@@ -288,21 +424,29 @@ def _pad_one(
         road_valid=_pad_to(s.road_valid, (P,)).astype(bool),
         edge_polylines=_pad_to(s.edge_polylines, (K, V, 2)),
         edge_poly_valid=_pad_to(s.edge_poly_valid, (K, V)).astype(bool),
+        rewards=None if s.rewards is None else _pad_to(s.rewards, (A,) + s.rewards.shape[1:]),
+        actions=None if s.actions is None else _pad_to(s.actions, (A,) + s.actions.shape[1:]),
+        **tl_fields,
     )
 
 
 def stack_scenarios(scenarios: list[Scenario], cfg: Config) -> Scenario:
-    """Pad + stack scenarios into one Scenario with a leading env axis."""
+    """Pad + stack scenarios into one Scenario with a leading env axis; an
+    optional field is None unless every scene holds it."""
     padded = pad_scenarios(scenarios, cfg)
     fields = [f.name for f in dataclasses.fields(Scenario) if f.name != "name"]
-    batch = {f: np.stack([getattr(s, f) for s in padded], axis=0) for f in fields}
+    batch = {}
+    for f in fields:
+        values = [getattr(s, f) for s in padded]
+        batch[f] = None if any(v is None for v in values) else np.stack(values, axis=0)
     batch["name"] = tuple(s.name for s in padded)
     return Scenario(**batch)
 
 
 def to_torch(scenario: Scenario, device: torch.device | str) -> Scenario:
     """Copy every array field of a (stacked) scenario onto ``device``:
-    floats as float32, integers as int64, booleans as bool."""
+    floats as float32, integers as int64, booleans as bool; an absent
+    optional field stays None."""
     out = {}
     for f in dataclasses.fields(Scenario):
         v = getattr(scenario, f.name)

@@ -11,6 +11,7 @@ a gather.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.data.datagen import OfflineArrays, generate_offline_data
 from ctrl_sim_tpu_torch.data.pipeline import build_train_batch
-from ctrl_sim_tpu_torch.data.scenario import Scenario, stack_scenarios, to_torch
+from ctrl_sim_tpu_torch.data.scenario import Scenario, load_scenario_json, stack_scenarios, to_torch
 from ctrl_sim_tpu_torch.device import resolve_device
 
 
@@ -28,6 +29,22 @@ def _arrays(scenario: Scenario, kind: type) -> dict:
     ``dataclasses.asdict``)."""
     out = {f.name: getattr(scenario, f.name) for f in dataclasses.fields(scenario)}
     return {k: v for k, v in out.items() if isinstance(v, kind)}
+
+
+def load_json_dir(cfg: Config, directory: str, limit: int | None = None, native: bool = False) -> list[Scenario]:
+    """The scenes of every ``*.json`` in ``directory``, sorted by name, the
+    first ``limit`` of them; ``native`` picks the C++ loader
+    (``data/native_loader.py``), which raises if it cannot be built."""
+    files = sorted(glob.glob(os.path.join(directory, "*.json")))
+    if limit:
+        files = files[:limit]
+    if not files:
+        raise FileNotFoundError(f"no *.json scene files in {directory}")
+    if native:
+        from ctrl_sim_tpu_torch.data.native_loader import load_scenario_json_native as load
+    else:
+        load = load_scenario_json
+    return [load(f, cfg) for f in files]
 
 
 def _slice_scenario(scenario: Scenario, lo: int, hi: int) -> Scenario:
@@ -47,8 +64,12 @@ class ScenarioStore:
 
     @classmethod
     def from_json_dir(cls, cfg: Config, directory: str, limit: int | None = None,
-                      replay_chunk: int = 64, device=None) -> "ScenarioStore":
-        raise NotImplementedError("the JSON scene loaders are not ported yet")
+                      replay_chunk: int = 64, device: torch.device | str | None = None,
+                      native: bool = False) -> "ScenarioStore":
+        """The scenes of every ``*.json`` in ``directory`` (sorted, the first
+        ``limit``), loaded by the Python loader or, with ``native``, the C++
+        one, and replayed as ``from_scenes`` replays them."""
+        return cls.from_scenes(cfg, load_json_dir(cfg, directory, limit, native), replay_chunk, device)
 
     @classmethod
     def from_scenes(cls, cfg: Config, scenes: list[Scenario], replay_chunk: int = 64,

@@ -9,14 +9,19 @@
   python -m ctrl_sim_tpu_torch.eval_sim --device cpu --synthetic 4 \\
       -o model.hidden_dim=64 -o model.num_heads=4 -o sim.steps=16
 
+  # scene JSONs (either dialect) with the converted trained checkpoint
+  python -m ctrl_sim_tpu_torch.eval_sim --data_dir /data/test \\
+      --ckpt artifacts/torch/r05_s0
+
 Same flags as the JAX CLI, plus ``--device`` (``cuda`` by default; the run
 raises without a card unless ``--device cpu`` is given). ``--ckpt``
 restores the port's own checkpoints (``training/checkpoint.py``, the
-``step_<n>.pt`` files of ``python -m ctrl_sim_tpu_torch.train``), after
-checking their ``config.json`` against the eval config's normalization
-frame; without it the weights are random from a seeded generator. Not
-ported yet, and refused: ``--data_dir`` (the JSON scene loaders) and the
-CTG++ preset.
+``step_<n>.pt`` files of ``python -m ctrl_sim_tpu_torch.train``) and
+starts from their ``config.json`` (the shapes and family they were
+trained at) in place of the preset, before the overrides; without it the
+weights are random from a seeded generator. ``--data_dir`` reads
+every ``*.json`` scene of a directory (``--native_loader``: the C++
+loader). Not ported yet, and refused: the CTG++ preset.
 """
 
 from __future__ import annotations
@@ -28,21 +33,24 @@ import os
 import torch
 
 from ctrl_sim_tpu_torch.config import Config, _set_dotted, preset
+from ctrl_sim_tpu_torch.data.store import load_json_dir
 from ctrl_sim_tpu_torch.data.synthetic import synthetic_scenario
 from ctrl_sim_tpu_torch.device import resolve_device
 from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator, check_checkpoint_normalization
 from ctrl_sim_tpu_torch.train import parse_overrides
 from ctrl_sim_tpu_torch.training import Trainer
-from ctrl_sim_tpu_torch.training.checkpoint import CheckpointManager
+from ctrl_sim_tpu_torch.training.checkpoint import checkpoint_config, restore_model
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     """The flags both evaluation CLIs take."""
-    p.add_argument("--preset", default="ctrl_sim")
+    p.add_argument("--preset", default="ctrl_sim", help="the config without --ckpt (a checkpoint brings its own)")
     p.add_argument("-o", "--override", action="append", default=[])
     p.add_argument("--ckpt", default=None, help="checkpoint directory")
     p.add_argument("--data_dir", default=None)
     p.add_argument("--limit_files", type=int, default=None)
+    p.add_argument("--native_loader", action="store_true",
+                   help="read --data_dir with the C++ loader (built with g++ at first use)")
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--synthetic_agents", type=int, default=12)
     p.add_argument("--synthetic_conflict", type=int, default=0)
@@ -55,12 +63,17 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 
 
 def config_and_scenes(args) -> tuple[Config, list]:
-    """The preset with the overrides, and the scenes to evaluate."""
-    cfg = preset(args.preset)
-    for key, value in parse_overrides(args.override).items():
-        cfg = _set_dotted(cfg, key, value)
+    """The checkpoint's config (``--ckpt``) or the preset, with the
+    overrides, and the scenes to evaluate."""
+    overrides = parse_overrides(args.override)
+    if args.ckpt:
+        cfg = checkpoint_config(args.ckpt, overrides)
+    else:
+        cfg = preset(args.preset)
+        for key, value in overrides.items():
+            cfg = _set_dotted(cfg, key, value)
     if args.data_dir:
-        raise NotImplementedError("--data_dir: the JSON scene loaders are not ported yet (ROADMAP.md §1 item 2)")
+        return cfg, load_json_dir(cfg, args.data_dir, args.limit_files, native=args.native_loader)
     scenes = [
         synthetic_scenario(cfg, seed=args.synthetic_seed0 + s, num_agents=args.synthetic_agents,
                            conflict_pairs=args.synthetic_conflict)
@@ -72,15 +85,16 @@ def config_and_scenes(args) -> tuple[Config, list]:
 def load_model(cfg: Config, args, device: torch.device, tag: str = "eval"):
     """The model, with seeded random weights or restored from ``--ckpt``
     (the latest step unless ``--ckpt_step``), in eval mode."""
-    state = Trainer(cfg, device=device).init_state(torch.Generator().manual_seed(0))
     if args.ckpt:
         # the snapshotted training config, not the eval-time flag, defines
         # the distribution the model was trained on
         check_checkpoint_normalization(cfg, args.ckpt)
-        state = CheckpointManager(cfg, args.ckpt).restore(state, step=getattr(args, "ckpt_step", None))
-        print(f"[{tag}] restored step {state.step} from {args.ckpt}")
-    state.model.eval()
-    return state.model
+        model, step = restore_model(cfg, args.ckpt, device, step=getattr(args, "ckpt_step", None))
+        print(f"[{tag}] restored step {step} from {args.ckpt}")
+        return model
+    model = Trainer(cfg, device=device).init_state(torch.Generator().manual_seed(0)).model
+    model.eval()
+    return model
 
 
 def write_metrics(metrics: dict, path: str | None) -> None:

@@ -23,7 +23,10 @@ before the product with V; the denominator applied to the [Q, d] output.
 K2 folds the K scale into the score row and the V scale into the weights,
 so its products run on the raw int8 values (exact in q's dtype). The TPU
 kernels' Q-padding to 8 rows and their 128-lane concatenated store are TPU
-tiling details with no counterpart here.
+tiling details with no counterpart here. Like the JAX kernels, both take
+any head width d that divides H: on the card a head narrower than an
+instantiated width (``ops/heads.py``) is zero-padded to it after the
+pre-scale by the true d, and a head wider than 64 raises.
 """
 
 from __future__ import annotations
@@ -34,12 +37,12 @@ import functools
 import torch
 
 from ctrl_sim_tpu_torch.ops import build
+from ctrl_sim_tpu_torch.ops.heads import head_dim, kernel_head_dim, pad_heads, unpad_heads
 
 Tensor = torch.Tensor
 
 LOG2E = 1.4426950408889634
 _MASK_NEG = -1e30
-HEAD_DIMS = (16, 32, 64)  # head widths the kernel is instantiated for
 
 
 def _prescale(q: Tensor, num_heads: int) -> Tensor:
@@ -73,7 +76,8 @@ def cached_decode_attention_reference(
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, scales: tuple = ()) -> None:
-    """The shapes, head width, q dtype and device that both kernels take."""
+    """The shapes, q dtype and device that both kernels take; the heads
+    must divide H."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or mask.dim() != 2:
         raise ValueError("expected q [B, Q, H], k/v [B, N, H], mask [Q, N]")
     B, Q, H = q.shape
@@ -84,8 +88,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, scales
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"mask {tuple(mask.shape)}, scales {[tuple(s.shape) for s in scales]}"
         )
-    if H % num_heads != 0 or H // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head width H/num_heads = {H}/{num_heads} not in {HEAD_DIMS}")
+    head_dim(H, num_heads)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     devices = {t.device for t in (q, k, v, mask, *scales)}
@@ -104,7 +107,9 @@ def _kernel(source: str, symbol: str, pointers: int):
 
 def _launch(fn, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, scales: tuple = ()) -> Tensor:
     """Launches one decode-attention kernel on q's current stream and
-    returns its output; raises on what the kernel does not take."""
+    returns its output; raises on what the kernel does not take. Heads
+    narrower than an instantiated width are zero-padded to it (q after its
+    pre-scale by the true width), and the padded output columns dropped."""
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v), *zip(("k_scale", "v_scale"), scales)):
@@ -115,20 +120,23 @@ def _launch(fn, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, s
             raise ValueError(f"{name} must be 16-byte aligned (the kernel loads K/V 16 bytes at a time)")
     B, Q, H = q.shape
     N = k.shape[1]
+    d = H // num_heads
+    width = kernel_head_dim(d)
     mask_i8 = mask.to(torch.int8).contiguous()
     if N % 2:  # the kernels read a mask row two bytes at a time: pad it to an even length
         mask_i8 = torch.nn.functional.pad(mask_i8, (0, 1))
-    qs = _prescale(q, num_heads).contiguous()
-    out = torch.empty_like(q)
+    qs = pad_heads(_prescale(q, num_heads), num_heads, width).contiguous()
+    k, v = pad_heads(k, num_heads, width), pad_heads(v, num_heads, width)
+    out = torch.empty_like(qs)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             qs.data_ptr(), *(t.data_ptr() for t in (k, v, *scales)), mask_i8.data_ptr(), out.data_ptr(),
-            B, Q, N, H, num_heads, int(q.dtype == torch.bfloat16), stream,
+            B, Q, N, num_heads * width, num_heads, int(q.dtype == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {err}")
-    return out
+    return unpad_heads(out, num_heads, d)
 
 
 def cached_decode_attention(

@@ -33,7 +33,11 @@ Semantics kept from the TPU kernels: scores s * q.k in fp32 with s =
 ``lse = m + log(l)`` per row from the softmax before dropout, dropout after
 normalization (``keep ? p / (1 - p_drop) : 0``), dq in q's type and dk/dv
 accumulated in fp32 and returned in k's type. The keep bit is
-bit-identical to the JAX ``_dropout_keep``.
+bit-identical to the JAX ``_dropout_keep``. Like the JAX kernels, these
+take any head width d that divides D: on the card a head narrower than an
+instantiated width (``ops/heads.py``) is zero-padded to it, the kernels
+scale by the true d, and the padded output and gradient columns are
+dropped; a head wider than 64 raises.
 """
 
 from __future__ import annotations
@@ -46,13 +50,13 @@ from typing import NamedTuple
 import torch
 
 from ctrl_sim_tpu_torch.ops import build
+from ctrl_sim_tpu_torch.ops.heads import head_dim, kernel_head_dim, pad_heads, unpad_heads
 from ctrl_sim_tpu_torch.ops.masks import token_coords, visible
 
 Tensor = torch.Tensor
 
 _NEG = -1e30  # large-negative instead of -inf: keeps padded rows NaN-free
 _U32 = 0xFFFFFFFF
-HEAD_DIMS = (16, 32, 64)  # head widths the kernels are instantiated for
 TILE = 64  # query and key rows per tile of the bf16 tensor-core kernels
 
 
@@ -191,9 +195,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, num_heads: int) -> None:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected q, k, v [B, T, D] of one shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    D = q.shape[-1]
-    if D % num_heads != 0 or D // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head width D/num_heads = {D}/{num_heads} not in {HEAD_DIMS}")
+    head_dim(q.shape[-1], num_heads)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     devices = {t.device for t in (q, k, v)}
@@ -215,8 +217,8 @@ def _seed_tensor(seed, device: torch.device) -> Tensor:
 def _kernels():
     lib = build.load("flash_attention.cu")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # B, T, H, heads, A, K, state_index, own, has_window, window
-    shape = [i32] * 10
+    # B, T, H, heads, head_dim, A, K, state_index, own, has_window, window
+    shape = [i32] * 11
     # dropout_p, threshold, is_bf16, stream
     tail = [ctypes.c_float, ctypes.c_uint, i32, ptr]
     fwd = lib.ctrl_sim_flash_fwd
@@ -228,11 +230,13 @@ def _kernels():
     return fwd, bwd
 
 
-def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, dropout_p: float) -> list:
+def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, d: int, dropout_p: float) -> list:
+    """The kernels' scalar arguments for the head-padded q [B, T, D] whose
+    heads hold d true columns each."""
     B, T, D = q.shape
     window = spec.window
     return [
-        B, T, D, num_heads, spec.num_agents, spec.num_types, spec.state_index,
+        B, T, D, num_heads, d, spec.num_agents, spec.num_types, spec.state_index,
         int(spec.attend_own_return_action), int(window is not None), int(window or 0),
         float(dropout_p), keep_threshold(1.0 - dropout_p), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -269,17 +273,20 @@ def flash_mha_fwd(
         return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed)
     _require_cuda(q, k, v)
     seed_t = _seed_tensor(seed, q.device)
-    B, T, _ = q.shape
+    B, T, D = q.shape
+    d = D // num_heads
+    width = kernel_head_dim(d)
+    q, k, v = (pad_heads(x, num_heads, width) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
     fwd, _ = _kernels()
     with torch.cuda.device(q.device):
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec),
-                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p))
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError_t {err}")
     flash_mha_fwd.launches += 1
-    return out, lse
+    return unpad_heads(out, num_heads, d), lse
 
 
 flash_mha_fwd.launches = 0
@@ -304,18 +311,21 @@ def flash_mha_bwd(
     if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("out and dout must have q's dtype, lse float32")
     seed_t = _seed_tensor(seed, q.device)
-    B, T, _ = q.shape
+    B, T, D = q.shape
+    d = D // num_heads
+    width = kernel_head_dim(d)
+    q, k, v, out, dout = (pad_heads(x, num_heads, width) for x in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
     _, bwd = _kernels()
     with torch.cuda.device(q.device):
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, dropout_p))
+                  dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p))
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError_t {err}")
     flash_mha_bwd.launches += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(x, num_heads, d) for x in (dq, dk, dv))
 
 
 flash_mha_bwd.launches = 0

@@ -17,11 +17,19 @@ Examples:
   # full width on the card, global batch 64 as 16 x 4 accumulation
   python -m ctrl_sim_tpu_torch.train --synthetic 64 --steps 200 -o train.accum_steps=4
 
+  # offline-RL training on directories of scene JSONs, validated every 1000 steps
+  python -m ctrl_sim_tpu_torch.train --data_dir /data/offline_rl/train \\
+      --val_dir /data/offline_rl/val --val_every 1000 --steps 200000
+
 ``--preset`` picks the model family: ``ctrl_sim`` (the default), ``dt``,
-``il`` or ``trajeglish``, each trained on the CtRL-Sim batch. Not ported
-yet, and refused: ``--preset ctg_plus_plus``, ``--data_dir`` /
-``--val_dir`` (the JSON scene loaders), ``--distributed`` (the
-multi-device learner).
+``il`` or ``trajeglish``, each trained on the CtRL-Sim batch. With
+``--val_dir`` and ``--val_every``, every ``val_every`` steps the loss of a
+batch of the validation scenes (drawn by a stream of its own) is printed
+as ``[val] step=... val_loss=...``, logged, and saved with that step's
+checkpoint, and the checkpoint with the lowest ``val_loss`` is kept beside
+the last ``train.keep_last_n``. ``--native_loader`` reads the JSONs with
+the C++ loader. Not ported yet, and refused: ``--preset ctg_plus_plus``,
+``--distributed`` (the multi-device learner).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from ctrl_sim_tpu_torch.training.trainer import (
     DATA_STREAM,
     DROPOUT_STREAM,
     GRAD_NORM_STREAM,
+    VAL_STREAM,
     step_generator,
 )
 from ctrl_sim_tpu_torch.utils.logging import MetricsLogger
@@ -61,7 +70,8 @@ def parse_overrides(pairs: list[str]) -> dict:
 
 def build_store(cfg: Config, args, device: torch.device) -> ScenarioStore:
     if args.data_dir:
-        return ScenarioStore.from_json_dir(cfg, args.data_dir, limit=args.limit_files, device=device)
+        return ScenarioStore.from_json_dir(cfg, args.data_dir, limit=args.limit_files, device=device,
+                                           native=args.native_loader)
     scenes = [
         synthetic_scenario(cfg, seed=s, num_agents=args.synthetic_agents,
                            conflict_pairs=args.synthetic_conflict)
@@ -77,6 +87,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--data_dir", default=None)
     p.add_argument("--val_dir", default=None)
     p.add_argument("--limit_files", type=int, default=None)
+    p.add_argument("--native_loader", action="store_true",
+                   help="read --data_dir / --val_dir with the C++ loader (built with g++ at first use)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic scenes when no data_dir")
     p.add_argument("--synthetic_agents", type=int, default=12)
@@ -95,8 +107,6 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.distributed:
         raise NotImplementedError("--distributed: the multi-device learner is not ported yet")
-    if args.val_dir:
-        raise NotImplementedError("--val_dir: the JSON scene loaders are not ported yet")
     device = resolve_device(args.device)
 
     cfg = preset(args.preset)
@@ -110,6 +120,11 @@ def main(argv: list[str] | None = None) -> None:
     print(f"[train] devices=1 batch={batch_size} preset={args.preset}")
     store = build_store(cfg, args, device)
     print(f"[train] store: {store.num_scenes} scenes")
+    val_store = None
+    if args.val_dir:
+        val_store = ScenarioStore.from_json_dir(cfg, args.val_dir, limit=args.limit_files, device=device,
+                                                native=args.native_loader)
+        print(f"[train] validation store: {val_store.num_scenes} scenes")
 
     seed = cfg.train.seed
     trainer = Trainer(cfg, device=device)
@@ -123,6 +138,7 @@ def main(argv: list[str] | None = None) -> None:
 
     logger = MetricsLogger(save_dir, track=cfg.train.track)
     train_step = trainer.make_train_step()
+    eval_step = trainer.make_eval_step()
     grad_norm_fn = trainer.make_grad_norm_fn() if cfg.train.log_grad_norms else None
 
     t0 = time.time()
@@ -150,7 +166,13 @@ def main(argv: list[str] | None = None) -> None:
                 f"state={float(losses.loss_state):.4f} "
                 f"steps/s={args.log_every / dt:.2f}"
             )
-        if step % args.ckpt_every == 0:
+        if args.val_every and val_store is not None and step % args.val_every == 0:
+            vb = val_store.sample_batch(step_generator(seed, step, VAL_STREAM, device), batch_size)
+            val_metric = float(eval_step(state, vb).total)
+            print(f"[val] step={step} val_loss={val_metric:.4f}")
+            logger.log(step, {"val_loss": val_metric})
+            mgr.save(step, state, metrics={"val_loss": val_metric})
+        elif step % args.ckpt_every == 0:
             mgr.save(step, state)
     mgr.save(step, state)
     mgr.wait()

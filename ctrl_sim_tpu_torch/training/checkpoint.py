@@ -18,7 +18,7 @@ import re
 import torch
 
 from ctrl_sim_tpu_torch.config import Config
-from ctrl_sim_tpu_torch.training.trainer import TrainState
+from ctrl_sim_tpu_torch.training.trainer import Trainer, TrainState
 
 _NAME = re.compile(r"step_(\d+)\.pt")
 
@@ -90,3 +90,27 @@ class CheckpointManager:
     def load_config(directory: str) -> dict:
         with open(os.path.join(directory, "config.json")) as f:
             return json.load(f)
+
+
+def checkpoint_config(directory: str, overrides: dict | None = None) -> Config:
+    """The Config of a checkpoint directory's ``config.json`` (the shapes it
+    was trained at), with ``overrides`` ({dotted key: value}) applied."""
+    from ctrl_sim_tpu_torch.config import _set_dotted, config_from_dict
+
+    cfg = config_from_dict(CheckpointManager.load_config(directory))
+    for key, value in (overrides or {}).items():
+        cfg = _set_dotted(cfg, key, value)
+    return cfg
+
+
+def restore_model(cfg: Config, directory: str, device: torch.device | str | None = None, step: int | None = None):
+    """(model in eval mode, step) of a checkpoint directory's step (the
+    latest unless ``step`` is given), built from ``cfg`` on ``device`` (the
+    card unless the caller passes "cpu")."""
+    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
+
+    trainer = Trainer(cfg, device=device)
+    state = trainer.state_from_model(CtRLSim(cfg, device=trainer.device))
+    state = CheckpointManager(cfg, directory).restore(state, step=step)
+    state.model.eval()
+    return state.model, state.step

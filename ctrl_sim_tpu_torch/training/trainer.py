@@ -98,7 +98,7 @@ def _split(batch: dict, accum: int) -> list[dict]:
     return [dict(zip(batch, parts)) for parts in zip(*(v.chunk(accum) for v in batch.values()))]
 
 
-DATA_STREAM, DROPOUT_STREAM, GRAD_NORM_STREAM = 0, 1, 2
+DATA_STREAM, DROPOUT_STREAM, GRAD_NORM_STREAM, VAL_STREAM = 0, 1, 2, 3
 
 
 def step_generator(seed: int, step: int, stream: int, device: torch.device | str) -> torch.Generator:

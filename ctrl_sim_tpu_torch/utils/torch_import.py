@@ -15,7 +15,9 @@ with Linear layers, the others with embeddings). Mapping:
     in_proj_weight/bias            -> q_proj/k_proj/v_proj (+ out_proj)
   MLPLayer Sequential 0/1/3        -> Dense_0/LayerNorm_0/Dense_1
 
-``golden_state`` reads the executed-reference goldens
+``load_torch_checkpoint`` reads such a checkpoint (a Lightning ``.ckpt``
+or a raw state dict) with torch alone; ``golden_state`` reads the
+executed-reference goldens
 (``tests/goldens/reference_model*.npz``), whose weight names drop the
 ``encoder.`` prefix and shorten ``decoder.`` to ``dec.``.
 """
@@ -172,3 +174,13 @@ def golden_batch(npz: Mapping[str, np.ndarray], family: str) -> dict[str, np.nda
             batch[key[len(pfx):]] = np.asarray(npz[key])
     batch["timesteps"] = batch["timesteps"][:, 0, :].astype(np.int64)
     return batch
+
+
+def load_torch_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """A Lightning ``.ckpt`` (its ``state_dict``) or a raw state-dict ``.pt``
+    as numpy arrays, loaded on the CPU with ``weights_only``."""
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return {k: v.numpy() for k, v in state.items() if hasattr(v, "numpy")}

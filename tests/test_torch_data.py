@@ -252,5 +252,5 @@ def test_store_round_trip_and_sampling(tmp_path):
     assert b1["agent_states"].shape[:3] == (5, tcfg.waymo.max_num_agents, tcfg.waymo.train_context_length)
     with pytest.raises(NotImplementedError):
         store.sample_batch(None, 2, family="ctg_plus_plus")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # the loaders are ported: a directory without scene JSONs
         ScenarioStore.from_json_dir(tcfg, str(tmp_path))

@@ -391,8 +391,9 @@ def test_eval_sim_cli_restores_a_port_checkpoint_on_the_cpu(tmp_path, capsys):
             assert 0 <= v <= 1
         if k.endswith("_jsd"):
             assert 0 <= v <= np.sqrt(np.log(2)) + 1e-12
-    with pytest.raises(NotImplementedError, match="JSON scene loaders"):
-        eval_sim.main(["--device", "cpu", "--data_dir", str(tmp_path), *_toy_flags()])
+    (tmp_path / "no_scenes").mkdir()
+    with pytest.raises(FileNotFoundError, match="no \\*.json scene files"):  # the loaders are ported
+        eval_sim.main(["--device", "cpu", "--data_dir", str(tmp_path / "no_scenes"), *_toy_flags()])
 
 
 def test_eval_planner_cli_on_the_cpu():

@@ -144,8 +144,8 @@ def test_wrappers_on_cpu_use_plain_version():
 
 @pytest.mark.parametrize(
     "shape,heads,dtype,error",
-    [((2, 36, 12), 2, torch.float32, ValueError),  # head width 6
-     ((2, 36, 256), 2, torch.float32, ValueError),  # head width 128
+    [((2, 36, 13), 2, torch.float32, ValueError),  # 2 heads do not divide the width 13
+     ((2, 36, 256), 3, torch.float32, ValueError),  # nor 3 heads 256
      ((2, 36, 32), 2, torch.float16, TypeError)],
 )
 def test_wrapper_rejects(shape, heads, dtype, error):

@@ -90,7 +90,7 @@ def test_q8_wrapper_on_cpu_uses_plain_version_and_rejects():
         (q, k[:, :40], v, ks, vs, mask, 2, ValueError),
         (q, k, v, ks[:, :40], vs, mask, 2, ValueError),
         (q, k, v, ks, vs, mask[:, :40], 2, ValueError),
-        (q, k, v, ks, vs, mask, 8, ValueError),  # d = 8 has no kernel instance
+        (q, k, v, ks, vs, mask, 6, ValueError),  # 6 heads do not divide H = 64
     ]
     for *args, error in bad:
         with pytest.raises(error):

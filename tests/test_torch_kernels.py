@@ -41,7 +41,9 @@ def cuda():
      # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
      (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2),
      # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
-     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8)],
+     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8),
+     # head widths 8 and 48, with no kernel instance: each head zero-padded to 16 and 64
+     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4)],
 )
 def test_decode_attention_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N)
@@ -104,7 +106,9 @@ def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
      # three m16 row tiles; N dividing neither the 32-key chunk nor the 4-warp split; an odd N
      (3, 48, 1536, 256, 8), (2, 20, 1000, 128, 4), (2, 33, 1000, 256, 4), (2, 7, 999, 64, 2),
      # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
-     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8)],
+     (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8),
+     # head widths 8 and 48, with no kernel instance: each head zero-padded to 16 and 64
+     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4)],
 )
 def test_decode_attention_q8_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N + 1)
@@ -255,10 +259,25 @@ def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
         (2, 6, 4, 3, 4, 64, True, None),  # d = 64, strict mode
         (3, 7, 3, 3, 2, 16, False, 3),  # d = 16, sliding window
         (2, 6, 4, 2, 4, 16, False, None),  # 2-token layout
+        (2, 8, 24, 3, 4, 8, False, None),  # d = 8: each head zero-padded to 16
+        (2, 5, 23, 3, 4, 48, True, None),  # d = 48, padded to 64, ragged, strict mode
     ],
 )
 def test_flash_attention_kernels_match_plain(cuda, dropout_p, dtype, atol, gtol, B, steps, A, K, heads, d, own, window):
     _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, atol, gtol)
+
+
+def test_head_width_above_the_widest_instance_is_refused(cuda):
+    """d = 128 has no instance to pad to: every wrapper raises before a
+    launch, and no width is handed to a plain version."""
+    x = torch.zeros((2, 36, 256), device=cuda)
+    mask = torch.ones((36, 36), dtype=torch.bool, device=cuda)
+    before = (attention.cached_decode_attention.launches, flash_attention.flash_mha_fwd.launches)
+    with pytest.raises(ValueError, match="widest kernel instance, 64"):
+        attention.cached_decode_attention(x, x, x, mask, 2)
+    with pytest.raises(ValueError, match="widest kernel instance, 64"):
+        flash_attention.flash_mha_fwd(x, x, x, flash_attention.MaskSpec(3, 3, 0, False, None), 2)
+    assert (attention.cached_decode_attention.launches, flash_attention.flash_mha_fwd.launches) == before
 
 
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1])

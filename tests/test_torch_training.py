@@ -334,8 +334,9 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
 def test_refusals_of_what_is_not_ported(tmp_path, capsys):
     """The DT, IL and trajeglish presets, refused until they were ported,
     equal the JAX package's, and ``train.py --preset dt`` takes a step on
-    the CPU. What stays unported is refused: the CTG++ preset, the
-    multi-device learner and the JSON scene loaders."""
+    the CPU. What stays unported is refused: the CTG++ preset and the
+    multi-device learner. The JSON scene loaders are ported: a data or
+    validation directory without scene JSONs raises."""
     import dataclasses
 
     from ctrl_sim_tpu.config import preset as jax_preset
@@ -347,10 +348,14 @@ def test_refusals_of_what_is_not_ported(tmp_path, capsys):
     with pytest.raises(NotImplementedError):
         preset("ctg_plus_plus")
     base = ["--device", "cpu", "--save_dir", str(tmp_path)]
-    for extra in (["--distributed"], ["--val_dir", str(tmp_path)], ["--data_dir", str(tmp_path)],
-                  ["--preset", "ctg_plus_plus"]):
+    for extra in (["--distributed"], ["--preset", "ctg_plus_plus"]):
         with pytest.raises(NotImplementedError):
             torch_train.main(base + extra)
+    (tmp_path / "no_scenes").mkdir()
+    for flag in ("--data_dir", "--val_dir"):
+        with pytest.raises(FileNotFoundError):
+            torch_train.main(base + ["--synthetic", "2", flag, str(tmp_path / "no_scenes"),
+                                     *(x for o in TOY_TRAIN for x in ("-o", o))])
     assert preset("ctrl_sim") == torch_load_config()
     args = base + ["--preset", "dt", "--synthetic", "4", "--synthetic_agents", "6", "--log_every", "1", "--steps", "1"]
     for o in TOY_TRAIN:

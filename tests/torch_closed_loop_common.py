@@ -129,6 +129,9 @@ CASES = {  # name: (preset, overrides, scene kind, groups: None | "built" | "pad
     "multigroup": ("ctrl_sim", MULTIGROUP, "multigroup", "built", False),
     "multigroup-padded": ("ctrl_sim", MULTIGROUP, "multigroup", "padded", False),
     "bf16": ("ctrl_sim", {"model.compute_dtype": "bfloat16"}, "toy", None, False),
+    "trajeglish": ("trajeglish", {}, "toy", None, False),
+    "dt": ("dt", {}, "toy", None, False),
+    "contacts": ("ctrl_sim", {"sim.resolve_contacts": True}, "toy", None, False),
 }
 
 
