@@ -144,7 +144,30 @@ code is 0 only when every phase passed:
    streaming (K1) and exact (K3), and the focal groups of the loaded
    scenes. Head widths without a kernel instance (d = 8 and 48, each head
    zero-padded to 16 and 64) are held in k1-vs-plain, k2-vs-plain and
-   k3-k4-vs-plain, and K3/K4 timed at them.
+   k3-k4-vs-plain, and K3/K4 timed at them beside their plain version and
+   SDPA;
+12. the CTG++ diffusion family, whose path reaches none of K1-K4: each
+   phase zeroes the launch counts first and fails if any of K1-K4 ran.
+   ctg-golden-full: the DiT at the preset's full width (hidden 256, 8
+   heads, 24 agents, horizon 10 + 22, 200 x 100 road crops) in f32 with the
+   executed reference's weights (``tests/goldens/reference_ctg_full.npz``,
+   through the port's importer) against its output within 5e-4 + 1e-4
+   |ref|; ctg-small-agreement: the toy CTGPlusPlus (seeded weights) on the
+   card against the CPU on one CTG++ batch and the same draws (forward,
+   loss, unguided and guided sample) in f32 within 1e-4, and the forward
+   and loss in bf16 within 2e-2 (the bf16 samples' card-vs-CPU gap is
+   printed, not held: the rounding of 10 compounding bf16 denoiser steps is
+   of the size of the CPU's own bf16-vs-f32 gap, printed beside it);
+   ctg-eval: ``eval_sim --preset ctg_plus_plus --synthetic
+   32`` at full width with seeded weights (90 steps, contacts on, 17
+   replans of 50 denoiser calls), metrics finite and in range, its wall,
+   time per replan and peak memory, then again under torch.profiler for
+   the device's busy share, and one replan's device time by kernel;
+   ctg-train: ``train.py --preset ctg_plus_plus`` for 5 full-width steps
+   (global batch 64 as 2 x 32), losses finite, ms per step and peak
+   memory, and one step's device time by kernel; ctg-import: the
+   reference-layout import CLI on the small golden's CTG++ weights,
+   restored on the card, within 2e-4 + 1e-4 |ref| of the reference.
 
 Then one line ``{"kernels": [...]}``, each kernel's row with its times
 at the other families' shapes under ``family_shapes`` and K3's at the
@@ -518,7 +541,6 @@ def _flash_main(gen):
     timed, and the plain version and the library yardstick (SDPA, boolean
     mask, dropout 0) timed on the same inputs."""
     import torch
-    import torch.nn.functional as F
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
 
@@ -536,6 +558,23 @@ def _flash_main(gen):
         res["fwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, p, seed))
         res["bwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, p, seed))
 
+    res.update(_flash_plain_and_library_ms(q, k, v, do, spec, heads, 0.1, seed))
+    return res
+
+
+def _flash_plain_and_library_ms(q, k, v, do, spec, heads, dropout_p, seed) -> dict:
+    """Times, on the same inputs, of the plain version (forward at
+    ``dropout_p``, runs of one call; backward by autograd) and of the
+    library yardstick (SDPA with the boolean [T, T] mask at dropout 0,
+    forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    B, T, D = q.shape
+    d = D // heads
+    res = {}
     idx = torch.arange(T, device="cuda")
     mask = fa.block_mask(idx[:, None], idx[None, :], T, spec)
     q4, k4, v4 = (x.view(B, T, heads, d).transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -551,8 +590,8 @@ def _flash_main(gen):
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     with torch.no_grad():
         res["plain_fwd_ms"] = _median_ms(
-            lambda: fa.flash_mha_reference(q, k, v, spec, heads, 0.1, seed), reps=10, warmup=2, batch=1)
-    ref_out, _ = fa.flash_mha_reference(*leaves, spec, heads, 0.1, seed)
+            lambda: fa.flash_mha_reference(q, k, v, spec, heads, dropout_p, seed), reps=10, warmup=2, batch=1)
+    ref_out, _ = fa.flash_mha_reference(*leaves, spec, heads, dropout_p, seed)
     res["plain_bwd_ms"] = _median_ms(
         lambda: torch.autograd.grad(ref_out, leaves, do, retain_graph=True), reps=10, warmup=2, batch=1)
     del ref_out, leaves
@@ -1178,7 +1217,8 @@ def _flash_width_case(gen, d: int) -> dict:
     """K3/K4 at a head width with no kernel instance (the wrappers pad each
     head to the next one), at the train step's layout (B = 16, T = 2304, 8
     heads of width d, bf16, dropout 0.1): held against the plain version,
-    then timed beside their bounds at the true width."""
+    then timed beside their bounds at the true width, the plain version
+    (dropout 0.1) and SDPA (dropout 0), forward and backward."""
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
@@ -1192,7 +1232,9 @@ def _flash_width_case(gen, d: int) -> dict:
     row["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, 0.1, seed))
     bounds = _flash_bounds(16, q.shape[1], heads * d, heads, spec, "bfloat16")
     (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = bounds["fwd"], bounds["bwd"]
-    del q, k, v, do, out, lse
+    del out, lse
+    row.update(_flash_plain_and_library_ms(q, k, v, do, spec, heads, 0.1, seed))
+    del q, k, v, do
     torch.cuda.empty_cache()
     return row
 
@@ -1642,6 +1684,383 @@ def _trained_phases(gen) -> list[dict]:
     return r05_k1
 
 
+# ---------------------------------------------------------------------------
+# CTG++ (section 12 of the docstring): no kernel of K1-K4 on its path
+# ---------------------------------------------------------------------------
+
+CTG_FULL_GOLDEN = GOLDEN.with_name("reference_ctg_full.npz")
+CTG_GOLDEN = GOLDEN.with_name("reference_ctg.npz")
+CTG_EVAL_SCENES, CTG_TRAIN_SCENES, CTG_TRAIN_STEPS = 32, 64, 5
+CTG_TOY = {  # tests/torch_port_common.py's CTG++ toy: the executed reference's small golden's shapes
+    "model.hidden_dim": 32, "model.num_heads": 2, "model.dim_feedforward": 64,
+    "model.num_transformer_encoder_layers": 2, "model.n_diffusion_steps": 20, "model.n_eval_diffusion_step": 10,
+    "model.use_rtg": False, "waymo.train_context_length": 6, "waymo.input_horizon": 3, "waymo.max_num_agents": 4,
+    "waymo.rtg_discretization": 20, "waymo.max_num_road_polylines": 5, "waymo.max_num_road_pts_per_polyline": 6,
+    "sim.max_agents": 4,
+}
+NO_LAUNCHES = (0, 0, 0, 0)
+
+
+def _ctg_config(extra: dict):
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
+
+    cfg = preset("ctg_plus_plus")
+    for key, value in extra.items():
+        cfg = _set_dotted(cfg, key, value)
+    return cfg
+
+
+def _allclose_excess(got, want, atol: float, rtol: float) -> float:
+    """How far |got - want| exceeds atol + rtol |want| at worst (<= 0: within)."""
+    return ((got.float() - want).abs() - atol - rtol * want.abs()).max().item()
+
+
+def _ctg_golden_cond(g: dict) -> dict:
+    """A CTG++ golden's conditioning on the card, in the models' layout (the
+    reference's per-agent timesteps [B, N, T, 1] hold one value: [B, T])."""
+    import torch
+
+    names = ("agent_past_states", "agent_past_actions", "agent_types", "goals", "rtgs", "road_points",
+             "road_types")
+    cond = {name: g[f"in_{name}"] for name in names}
+    cond.update(past_relative_encodings=g["in_agent_past_rel_encodings"],
+                future_relative_encodings=g["in_agent_future_rel_encodings"],
+                moving_agent_mask=g["in_moving_agent_masks"], timesteps=g["in_timesteps"][:, 0, :, 0])
+    return {k: torch.as_tensor(v, device="cuda") for k, v in cond.items()}
+
+
+def _ctg_golden_full() -> str:
+    """The DiT at the preset's full width (hidden 256, 8 heads, FF 1024, 2
+    trunk layers, 24 agents, horizon 10 + 22, 200 x 100 road crops, RTG
+    conditioning) in f32 on the card, with the executed reference's
+    f16-snapped weights and inputs (``tests/goldens/reference_ctg_full.npz``)
+    through the port's importer, against its output within 5e-4 + 1e-4 |ref|."""
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch.models.ctg.dit import DiT
+    from ctrl_sim_tpu_torch.params import from_flax_params
+    from ctrl_sim_tpu_torch.utils.torch_import import ctg_params_from_torch_state
+
+    with np.load(CTG_FULL_GOLDEN) as f:
+        g = {k: f[k].astype(np.float32) if f[k].dtype == np.float16 else f[k] for k in f.files}
+    cfg = _ctg_config({"model.use_rtg": True, "model.compute_dtype": "float32"})
+    state = {"diff_model.model." + k[len("dit_w_"):]: v for k, v in g.items() if k.startswith("dit_w_")}
+    weights = from_flax_params(ctg_params_from_torch_state(state, cfg))  # the denoiser alone: no RTG head here
+    model = DiT(cfg, torch.float32, "cuda")
+    model.load_state_dict({k.removeprefix("diffusion.model."): v for k, v in weights.items()}, strict=True)
+    cond = _ctg_golden_cond(g)
+    want = torch.as_tensor(g["dit_out"], device="cuda")
+    _zero_counts()
+    with torch.no_grad():
+        out = model.eval()(torch.as_tensor(g["in_future_k"], device="cuda"), cond,
+                           torch.as_tensor(g["in_diff_step"], device="cuda"))
+    torch.cuda.synchronize()
+    _expect_counts("ctg-golden-full", NO_LAUNCHES)
+    err, excess = (out - want).abs().max().item(), _allclose_excess(out, want, 5e-4, 1e-4)
+    if not torch.isfinite(out).all() or excess > 0:
+        raise AssertionError(f"ctg-golden-full: max |d| {err} beyond 5e-4 + 1e-4 |ref| by {excess}")
+    return (f"DiT {tuple(out.shape)} f32, reference weights through the port's importer: max |d| {err:.3g} "
+            f"(within 5e-4 + 1e-4 |ref|); K1-K4 launches 0")
+
+
+def _ctg_small_agreement() -> str:
+    """The toy CTGPlusPlus (seeded weights) on the card against the same
+    model on the CPU, on one CTG++ batch of synthetic scenes and the same
+    draws: the DiT forward, the loss (dropout 0, the diffusion steps and
+    noise given), an unguided and a guided sample (one noise stream), in
+    f32 within 1e-4, and the forward and the loss in bf16 within 2e-2 (the
+    absolute error over max(1, |ref|)). The bf16 samples, whose 10
+    denoiser steps compound the rounding of each, are printed and not held,
+    with the CPU's own bf16 error against its f32 samples beside them: the
+    f32 samples hold the sampler."""
+    import torch
+
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.models.ctg import guidance
+    from ctrl_sim_tpu_torch.training import CTGTrainer
+
+    rows, cpu_f32 = [], None
+    for dtype in ("float32", "bfloat16"):
+        cfg = _ctg_config({**CTG_TOY, "model.compute_dtype": dtype, "model.dropout": 0.0,
+                           "model.goal_dropout": 0.0, "sim.steps": 16, "sim.resolve_contacts": False})
+        scenes = [synthetic_scenario(cfg, seed=SEED + s, num_agents=4, arena_half=60.0, num_lanes=2)
+                  for s in range(3)]
+        store = ScenarioStore.from_scenes(cfg, scenes, device="cpu")
+        batch = store.sample_batch(torch.Generator().manual_seed(SEED), 4, family="ctg_plus_plus")
+        gen = torch.Generator().manual_seed(SEED)
+        wc = cfg.waymo
+        shape = (4, wc.max_num_agents, wc.train_context_length - wc.input_horizon, 7)
+        draws = (torch.randint(0, cfg.model.n_diffusion_steps, (4,), generator=gen), torch.randn(shape, generator=gen))
+        noise = (torch.randn(shape, generator=gen), torch.randn((cfg.model.n_eval_diffusion_step,) + shape,
+                                                               generator=gen))
+        cpu = CTGTrainer(cfg, device="cpu").init_state(torch.Generator().manual_seed(SEED)).model.eval()
+        outs = {}
+        for device, model in (("cpu", cpu), ("cuda", CTGTrainer(cfg, device="cuda").new_model())):
+            if device == "cuda":
+                model.load_state_dict(cpu.state_dict())
+                model.eval()
+            b = {k: v.to(device) for k, v in batch.items()}
+            cond = {k: b[k] for k in ("agent_past_states", "agent_past_actions", "past_relative_encodings",
+                                      "future_relative_encodings", "agent_types", "goals", "timesteps", "rtgs",
+                                      "road_points", "road_types", "moving_agent_mask")}
+            nz = tuple(x.to(device) for x in noise)
+            guide = guidance.combine(guidance.goal_guide(1.0),
+                                     guidance.collision_guide(b["anchor"], wc.pos_div, radius=4.0))
+            _zero_counts()
+            with torch.no_grad():
+                outs[device] = {
+                    "forward": model.diffusion.model(draws[1].to(device), cond, draws[0].to(device)),
+                    "loss": model.loss(b, draws=tuple(x.to(device) for x in draws)).total,
+                    "sample": model.sample_from_cond(cond, noise_override=nz),
+                    "guided": model.sample_from_cond(cond, guidance_fn=guide, noise_override=nz),
+                }
+            if device == "cuda":
+                torch.cuda.synchronize()
+                _expect_counts(f"ctg-small-agreement {dtype}", NO_LAUNCHES)
+        errs, tols = {}, {}
+
+        def rel(a, b) -> float:
+            return ((a.float() - b.float()).abs() / b.float().abs().clamp(min=1.0)).max().item()
+
+        for name, want in outs["cpu"].items():
+            got = outs["cuda"][name].float().cpu()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"ctg-small-agreement {dtype} {name}: non-finite on the card")
+            errs[name] = rel(got, want)
+            tols[name] = None if dtype == "bfloat16" and name in ("sample", "guided") else TOL[dtype]
+            if tols[name] is not None and errs[name] > tols[name]:
+                raise AssertionError(f"ctg-small-agreement {dtype} {name}: card vs CPU {errs[name]} (tol {tols[name]})")
+        row = f"{dtype}: " + ", ".join(f"{k} {v:.3g} ({'not held' if tols[k] is None else f'tol {tols[k]}'})"
+                                       for k, v in errs.items())
+        if cpu_f32 is None:
+            cpu_f32 = outs["cpu"]
+        else:
+            row += "; the CPU's bf16 against its f32: " + ", ".join(
+                f"{k} {rel(outs['cpu'][k], cpu_f32[k]):.3g}" for k in ("forward", "sample", "guided"))
+        rows.append(row)
+    return "; ".join(rows) + "; K1-K4 launches 0"
+
+
+class _Timed:
+    """Times each call of a method (``cls.name``) between two
+    synchronizations while the context is open, and keeps the first
+    call's arguments; with ``profiled``, the first call runs under
+    torch.profiler (``self.prof``), the profiler opened and closed inside
+    the timed span."""
+
+    def __init__(self, cls, name: str, profiled: bool = False):
+        self.cls, self.name, self.orig, self.ms, self.first = cls, name, getattr(cls, name), [], None
+        self.profiled, self.prof = profiled, None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def timed(obj, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if self.profiled and self.prof is None:
+                with profile(activities=[ProfilerActivity.CUDA]) as self.prof:
+                    out = self.orig(obj, *args, **kwargs)
+                    torch.cuda.synchronize()
+            else:
+                out = self.orig(obj, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - start) * 1e3)
+            if self.first is None:
+                self.first = (obj, args, kwargs)
+            return out
+
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def _top_kernels(by_name: dict, total: float, n: int = 12) -> list[str]:
+    return [f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  {name[:100]}"
+            for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def _ctg_eval() -> str:
+    """``eval_sim --preset ctg_plus_plus --synthetic 32`` at full width with
+    seeded weights (bf16, contacts on, 90 steps, 17 replans of 50 denoiser
+    calls each): every metric finite and in range, K1-K4 never launched;
+    its wall, time per replan and peak memory; then the same evaluation
+    with ``PolicyEvaluator.evaluate`` alone under torch.profiler, its
+    device time over the unprofiled ``evaluate`` wall the device's busy
+    share (as ``profile_rollout`` takes it), and one replan profiled
+    alone, its device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctrl_sim_tpu_torch import eval_sim
+    from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
+    from ctrl_sim_tpu_torch.models.ctg_plus_plus import CTGPlusPlus
+    from ctrl_sim_tpu_torch.profile_rollout import _device_ms_by_kernel
+
+    args = ["--preset", "ctg_plus_plus", "--synthetic", str(CTG_EVAL_SCENES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _Timed(CTGPlusPlus, "sample_from_cond") as replans, _Timed(PolicyEvaluator, "evaluate") as evaluate:
+        start = time.perf_counter()
+        metrics = eval_sim.main(args)
+        torch.cuda.synchronize()
+        cli = time.perf_counter() - start
+    _expect_counts("ctg-eval", NO_LAUNCHES)
+    _check_metrics("ctg-eval", metrics, POLICY_RATES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(replans.ms) != 17:
+        raise AssertionError(f"ctg-eval: {len(replans.ms)} replans, expected 17 (steps 9, 14, ..., 89)")
+    wall = evaluate.ms[0] / 1e3
+    with _Timed(PolicyEvaluator, "evaluate", profiled=True) as profiled:
+        eval_sim.main(args)
+    busy = sum(_device_ms_by_kernel(profiled.prof).values()) / 1e3
+    model, (cond, *rest), kwargs = replans.first
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        model.sample_from_cond(cond, torch.Generator(device="cuda").manual_seed(SEED),
+                               guidance_fn=kwargs.get("guidance_fn"))
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_kernel(prof)
+    replan_busy = sum(by_name.values())
+    print(f"  one replan ({cond['agent_past_states'].shape[0]} scenes, 50 denoiser calls), device time by kernel:")
+    print("\n".join(_top_kernels(by_name, replan_busy)), flush=True)
+    steady = statistics.median(replans.ms[1:])
+    return (f"{CTG_EVAL_SCENES} scenes x 90 steps, contacts on, bf16; PolicyEvaluator.evaluate wall {wall:.3f} s "
+            f"(the CLI {cli:.3f} s with scene generation and the seeded init); evaluate's device busy {busy:.3f} s = "
+            f"{100 * busy / wall:.1f}% of the unprofiled evaluate wall; "
+            f"replans {len(replans.ms)}, first {replans.ms[0]:.1f} ms, steady median {steady:.1f} ms, all "
+            f"{sum(replans.ms) / 1e3:.3f} s; one replan's device time {replan_busy:.1f} ms; peak memory "
+            f"{peak:.2f} GiB; K1-K4 launches 0; goal {metrics['goal']:.4f}, collision "
+            f"{metrics['collision_rate']:.4f}, offroad {metrics['offroad_rate']:.4f}, ade {metrics['ade']:.4f}, fde "
+            f"{metrics['fde']:.4f} (random weights; one cold run on this card, not a benchmark)")
+
+
+def _ctg_train() -> str:
+    """``train.py --preset ctg_plus_plus`` at full width for 5 steps on 64
+    synthetic scenes (global batch 64 as 2 x 32, dropout 0.1): every loss
+    finite, K1-K4 never launched; the steady ms per step and the peak
+    memory; then one step of the same trainer profiled, its device time by
+    kernel."""
+    import json as _json
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctrl_sim_tpu_torch import train
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.profile_rollout import _device_ms_by_kernel
+    from ctrl_sim_tpu_torch.training import CTGTrainer
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ctg_"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        train.main(["--preset", "ctg_plus_plus", "--synthetic", str(CTG_TRAIN_SCENES), "--steps",
+                    str(CTG_TRAIN_STEPS), "--log_every", "1", "--save_dir", str(work / "ckpt")])
+        torch.cuda.synchronize()
+        _expect_counts("ctg-train", NO_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = [_json.loads(r) for r in (work / "ckpt" / "metrics.jsonl").read_text().splitlines()]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if len(rows) != CTG_TRAIN_STEPS or not all(math.isfinite(r[k]) for r in rows for k in
+                                               ("total", "diffusion_loss", "a0_loss")):
+        raise AssertionError(f"ctg-train: expected {CTG_TRAIN_STEPS} finite loss rows, got {rows}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+
+    cfg = _ctg_config({})
+    scenes = [synthetic_scenario(cfg, seed=s, num_agents=12) for s in range(8)]
+    store = ScenarioStore.from_scenes(cfg, scenes)
+    trainer = CTGTrainer(cfg)
+    state = trainer.init_state(torch.Generator().manual_seed(SEED))
+    step = trainer.make_train_step()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = store.sample_batch(gen, cfg.train.global_batch_size, family="ctg_plus_plus")
+    state, _ = step(state, batch, gen)  # warm-up
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    by_name = _device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    print(f"  one train step (global batch {cfg.train.global_batch_size} = {cfg.train.accum_steps} x "
+          f"{cfg.train.global_batch_size // cfg.train.accum_steps}), device time by kernel:")
+    print("\n".join(_top_kernels(by_name, busy)), flush=True)
+    del state, trainer, store
+    torch.cuda.empty_cache()
+    return (f"{CTG_TRAIN_STEPS} steps of global batch {cfg.train.global_batch_size} = {cfg.train.accum_steps} x "
+            f"{cfg.train.global_batch_size // cfg.train.accum_steps}, {CTG_TRAIN_SCENES} scenes; loss "
+            f"{rows[0]['total']:.4f} -> {rows[-1]['total']:.4f}; ms per step (the CLI's loop: batch build, "
+            f"step, logging) {', '.join(f'{x:.1f}' for x in step_ms)}, steady median "
+            f"{statistics.median(step_ms[1:]):.1f}; one step's device time {busy:.1f} ms; peak memory {peak:.2f} "
+            f"GiB; K1-K4 launches 0 (one run on this card, not a benchmark)")
+
+
+def _ctg_import() -> str:
+    """The reference-layout import CLI on the executed reference's small
+    CTG++ weights (``tests/goldens/reference_ctg.npz``, written as a
+    Lightning file), the checkpoint restored on the card: its denoiser's
+    and RTG head's outputs against the reference's within 2e-4 + 1e-4 |ref|."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch import import_checkpoint
+    from ctrl_sim_tpu_torch.training.checkpoint import restore_model
+
+    with np.load(CTG_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    state = {"diff_model.model." + k[len("dit_w_"):]: torch.tensor(v) for k, v in g.items() if k.startswith("dit_w_")}
+    state.update({"rtg_model." + k[len("rtg_w_"):]: torch.tensor(v) for k, v in g.items() if k.startswith("rtg_w_")})
+    over = {**CTG_TOY, "model.use_rtg": True, "model.compute_dtype": "float32"}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ctg_import_"))
+    try:
+        path = work / "ctg.ckpt"
+        torch.save({"state_dict": state}, path)
+        flags = [x for k, v in over.items() for x in ("-o", f"{k}={_json.dumps(v)}")]
+        import_checkpoint.main(["--torch", str(path), "--out", str(work / "out"), "--preset", "ctg_plus_plus",
+                                *flags])
+        model, step = restore_model(_ctg_config(over), str(work / "out"), "cuda")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cond = _ctg_golden_cond(g)
+    _zero_counts()
+    with torch.no_grad():
+        dit = model.diffusion.model(torch.as_tensor(g["in_future_k"], device="cuda"), cond,
+                                    torch.as_tensor(g["in_diff_step"], device="cuda"))
+        rtg = model.rtg_model(cond)
+    torch.cuda.synchronize()
+    _expect_counts("ctg-import", NO_LAUNCHES)
+    errs = {}
+    for name, got in (("dit_out", dit), ("rtg_out", rtg)):
+        want = torch.as_tensor(g[name], device="cuda")
+        errs[name] = (got - want).abs().max().item()
+        if _allclose_excess(got, want, 2e-4, 1e-4) > 0:
+            raise AssertionError(f"ctg-import: {name} off the reference by {errs[name]} (tol 2e-4 + 1e-4 |ref|)")
+    return (f"restored step {step} on the card; max |d| dit_out {errs['dit_out']:.3g}, rtg_out "
+            f"{errs['rtg_out']:.3g} (within 2e-4 + 1e-4 |ref|); K1-K4 launches 0")
+
+
+def _ctg_phases() -> None:
+    import torch
+
+    torch.cuda.empty_cache()
+    for name, fn in (("ctg-golden-full", _ctg_golden_full), ("ctg-small-agreement", _ctg_small_agreement),
+                     ("ctg-eval", _ctg_eval), ("ctg-train", _ctg_train), ("ctg-import", _ctg_import)):
+        t0 = time.perf_counter()
+        _phase(name, t0, fn())
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1788,8 +2207,10 @@ def main() -> int:
           f"backward, p=0) {ft['library_bwd_ms']:.4f} ms")
     for d, row in widths.items():
         print(f"  K3/K4 at d = {d} (padded to {kernel_head_dim(d)}), {row['shape']}: K3 {row['fwd_ms']:.4f} ms, bound "
-              f"{row['fwd_bound_ms']:.4f} ms ({row['fwd_bound_by']}); K4 {row['bwd_ms']:.4f} ms, bound "
-              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}); bounds at the true width")
+              f"{row['fwd_bound_ms']:.4f} ms ({row['fwd_bound_by']}), plain {row['plain_fwd_ms']:.4f} ms, library "
+              f"(SDPA, bool mask, p=0) {row['library_fwd_ms']:.4f} ms; K4 {row['bwd_ms']:.4f} ms, bound "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}), plain (autograd) {row['plain_bwd_ms']:.4f} ms, "
+              f"library (SDPA backward, p=0) {row['library_bwd_ms']:.4f} ms; bounds at the true width")
     _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
 
     t0 = time.perf_counter()
@@ -1908,6 +2329,7 @@ def main() -> int:
     del store
     torch.cuda.empty_cache()
     r05_k1 = _trained_phases(gen)
+    _ctg_phases()
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
@@ -1936,6 +2358,7 @@ def main() -> int:
     def flash_width_rows(key):
         return [{"case": f"d={d}", "shape": r["shape"], "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
                  "bound_by": r[f"{key}_bound_by"], "padded_to": kernel_head_dim(d),
+                 "plain_ms": r[f"plain_{key}_ms"], "library_ms": r[f"library_{key}_ms"],
                  "max_abs_err": r["out_err"] if key == "fwd" else r["grad_abs_err"]} for d, r in widths.items()]
 
     print(json.dumps({"kernels": [

@@ -1,9 +1,9 @@
 """Configuration of the PyTorch port: the dataclasses the streaming rollout
 and the trainer read.
 
-A copy of the JAX package's ``ctrl_sim_tpu/config.py`` restricted to the
-simulator, dataset, model, training, policy and evaluation sections, with
-the same field names and defaults (``tests/test_torch_env.py`` holds them
+A copy of the JAX package's ``ctrl_sim_tpu/config.py``: the simulator,
+dataset, model, CTG++ diffusion, training, policy and evaluation sections,
+with the same field names and defaults (``tests/test_torch_env.py`` holds them
 equal). The port keeps its own copy so that it imports nothing of the JAX
 package. Overrides compose through ``load_config`` with dotted keys.
 """
@@ -235,6 +235,26 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DiffusionConfig:
+    """CTG++ diffusion baseline (reference: cfgs/model/ctg_plus_plus.yaml).
+    The models read the diffusion settings of ``ModelConfig``; this section
+    is kept so that a CTG++ ``config.json`` of either package reads whole."""
+
+    diffusion_type: str = "states_actions"
+    n_diffusion_steps: int = 100
+    action_weight: float = 10.0
+    loss_discount: float = 1.0
+    predict_epsilon: bool = False
+    returns_condition: bool = True
+    condition_dropout: float = 0.25
+    condition_guidance_w: float = 1.2
+    test_ret: float = 0.9
+    n_eval_diffusion_step: int = 50
+    future_len: int = 22
+    history_len: int = 10
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Reference: cfgs/train/base.yaml (+ finetuning variant)."""
 
@@ -326,6 +346,7 @@ class Config:
     sim: SimConfig = field(default_factory=SimConfig)
     waymo: WaymoDatasetConfig = field(default_factory=WaymoDatasetConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     policy: PolicyConfig = field(default_factory=PolicyConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
@@ -363,9 +384,8 @@ def load_config(overrides: dict | None = None) -> Config:
 
 def config_from_dict(data: dict) -> Config:
     """The Config a ``config.json`` snapshot describes (``Config.to_dict``
-    of the port or of the JAX package). Sections the port does not have
-    (the JAX package's CTG++ settings) are left out; a field the port does
-    not know in a section it has raises."""
+    of the port or of the JAX package); a section or field the port does
+    not know raises."""
     cfg = Config()
 
     def walk(prefix: str, tree: dict) -> None:
@@ -376,13 +396,12 @@ def config_from_dict(data: dict) -> Config:
             else:
                 cfg = _set_dotted(cfg, f"{prefix}{key}", value)
 
-    sections = {f.name for f in dataclasses.fields(Config)}
-    walk("", {k: v for k, v in data.items() if k in sections})
+    walk("", data)
     return cfg
 
 
 _NO_RTG_HEADS = {"model.predict_future_states": False, "model.predict_rtg": False, "policy.predict_rtgs": False}
-# the reference's cfgs/model/{dt,il,trajeglish}.yaml
+# the reference's cfgs/model/{dt,il,trajeglish,ctg_plus_plus}.yaml
 _PRESETS = {
     "ctrl_sim": {},
     "dt": {
@@ -394,14 +413,17 @@ _PRESETS = {
     "trajeglish": {
         "model.trajeglish": True, **_NO_RTG_HEADS, "policy.use_rtg": False, "policy.tilt": TiltConfig(tilt=False),
     },
+    # cfgs/train/ctg_plus_plus.yaml: lr 2e-4, gradient_accumulate_every 2
+    "ctg_plus_plus": {
+        "model.ctg_plus_plus": True, "model.predict_rtg": False, "model.num_transformer_encoder_layers": 2,
+        "policy.predict_rtgs": False, "train.lr": 2e-4, "train.accum_steps": 2,
+    },
 }
 
 
 def preset(name: str) -> Config:
-    """The configuration of a model family: CtRL-Sim, DT, IL or trajeglish.
-    The CTG++ family is not ported and raises."""
-    if name == "ctg_plus_plus":
-        raise NotImplementedError("preset 'ctg_plus_plus': the CTG++ family is not ported")
+    """The configuration of a model family: CtRL-Sim, DT, IL, trajeglish or
+    CTG++."""
     if name not in _PRESETS:
         raise ValueError(f"unknown preset: {name!r}")
     return load_config(_PRESETS[name])

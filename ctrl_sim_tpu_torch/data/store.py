@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ctrl_sim_tpu_torch.config import Config
+from ctrl_sim_tpu_torch.data.ctg_pipeline import build_ctg_batch
 from ctrl_sim_tpu_torch.data.datagen import OfflineArrays, generate_offline_data
 from ctrl_sim_tpu_torch.data.pipeline import build_train_batch
 from ctrl_sim_tpu_torch.data.scenario import Scenario, load_scenario_json, stack_scenarios, to_torch
@@ -108,11 +109,13 @@ class ScenarioStore:
                      family: str = "ctrl_sim") -> dict:
         """Scene indices drawn with replacement, and their training batch
         built on the store's device; ``generator`` (on any device) makes
-        every draw."""
-        if family != "ctrl_sim":
-            raise NotImplementedError(f"family {family!r}: only ctrl_sim batches are ported")
+        every draw. ``family="ctg_plus_plus"`` builds the CTG++ diffusion
+        batch (``data/ctg_pipeline.py``) in place of the token batch."""
+        if family not in ("ctrl_sim", "ctg_plus_plus"):
+            raise ValueError(f"unknown batch family: {family!r}")
         scen, off = self.take(self.draw_indices(generator, batch_size))
-        return build_train_batch(self.cfg, scen, off, generator=generator)
+        build = build_ctg_batch if family == "ctg_plus_plus" else build_train_batch
+        return build(self.cfg, scen, off, generator=generator)
 
     def draw_indices(self, generator: torch.Generator | None, n: int) -> torch.Tensor:
         """``n`` scene indices drawn uniformly with replacement by

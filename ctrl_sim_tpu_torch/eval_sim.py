@@ -21,7 +21,10 @@ starts from their ``config.json`` (the shapes and family they were
 trained at) in place of the preset, before the overrides; without it the
 weights are random from a seeded generator. ``--data_dir`` reads
 every ``*.json`` scene of a directory (``--native_loader``: the C++
-loader). Not ported yet, and refused: the CTG++ preset.
+loader). ``--preset ctg_plus_plus`` (or a CTG++ checkpoint) evaluates the
+diffusion baseline through its 2 Hz closed loop:
+
+  python -m ctrl_sim_tpu_torch.eval_sim --preset ctg_plus_plus --synthetic 32
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ctrl_sim_tpu_torch.data.synthetic import synthetic_scenario
 from ctrl_sim_tpu_torch.device import resolve_device
 from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator, check_checkpoint_normalization
 from ctrl_sim_tpu_torch.train import parse_overrides
-from ctrl_sim_tpu_torch.training import Trainer
+from ctrl_sim_tpu_torch.training import trainer_for
 from ctrl_sim_tpu_torch.training.checkpoint import checkpoint_config, restore_model
 
 
@@ -83,8 +86,9 @@ def config_and_scenes(args) -> tuple[Config, list]:
 
 
 def load_model(cfg: Config, args, device: torch.device, tag: str = "eval"):
-    """The model, with seeded random weights or restored from ``--ckpt``
-    (the latest step unless ``--ckpt_step``), in eval mode."""
+    """The model of the config's family (CtRL-Sim or CTG++), with seeded
+    random weights or restored from ``--ckpt`` (the latest step unless
+    ``--ckpt_step``), in eval mode."""
     if args.ckpt:
         # the snapshotted training config, not the eval-time flag, defines
         # the distribution the model was trained on
@@ -92,7 +96,7 @@ def load_model(cfg: Config, args, device: torch.device, tag: str = "eval"):
         model, step = restore_model(cfg, args.ckpt, device, step=getattr(args, "ckpt_step", None))
         print(f"[{tag}] restored step {step} from {args.ckpt}")
         return model
-    model = Trainer(cfg, device=device).init_state(torch.Generator().manual_seed(0)).model
+    model = trainer_for(cfg, device=device).init_state(torch.Generator().manual_seed(0)).model
     model.eval()
     return model
 
@@ -116,8 +120,6 @@ def main(argv: list[str] | None = None) -> dict:
 
     device = resolve_device(args.device)
     cfg, scenes = config_and_scenes(args)
-    if cfg.model.ctg_plus_plus:
-        raise NotImplementedError("the CTG++ closed-loop policy is not ported yet (ROADMAP.md §1 item 3)")
     model = load_model(cfg, args, device)
     evaluator = PolicyEvaluator(cfg, model, lane_batch=args.lane_batch, device=device)
     metrics = evaluator.evaluate(scenes)

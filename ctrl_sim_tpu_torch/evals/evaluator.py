@@ -9,7 +9,10 @@ focal groups built on the host and padded to one group count, one rollout
 per chunk on the card, and the metrics pooled over every chunk.
 ``eval.rollout_mode`` picks the rollout: "exact" (``run_closed_loop``, the
 reference-parity default, kernel K3 on the card) or "streaming"
-(``run_streaming``, kernels K1/K2).
+(``run_streaming``, kernels K1/K2). A CTG++ config
+(``model.ctg_plus_plus``) rolls out ``run_ctg_closed_loop`` (2 Hz diffusion
+replanning, no tilt, no focal groups: each lane holds exactly
+``waymo.max_num_agents`` slots; reference policy_evaluator.py:466-593).
 
 Vehicle-selection modes (policy_evaluator.py:450-464):
 
@@ -32,6 +35,7 @@ from ctrl_sim_tpu_torch.data.scenario import Scenario, stack_scenarios, to_torch
 from ctrl_sim_tpu_torch.data.transforms import get_tilt_logits
 from ctrl_sim_tpu_torch.device import resolve_device
 from ctrl_sim_tpu_torch.evals.metrics import PolicyMetricsAccumulator
+from ctrl_sim_tpu_torch.rollout.ctg_rollout import run_ctg_closed_loop
 from ctrl_sim_tpu_torch.rollout.groups import GroupSpec, build_focal_groups, pad_groups
 from ctrl_sim_tpu_torch.rollout.rollout import run_closed_loop
 from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
@@ -137,9 +141,17 @@ def select_vehicles_to_evaluate(cfg: Config, scene: Scenario, rng: pyrandom.Rand
     return list(pair)
 
 
+def _ctg_rollout(cfg, model, scenario, controlled_mask, generator, tilt_logits=None, groups=None, sampler=None):
+    """``run_ctg_closed_loop`` behind the evaluators' rollout signature: no
+    tilt and no groups; ``sampler`` is its per-replan noise source."""
+    return run_ctg_closed_loop(cfg, model, scenario, controlled_mask, generator, noise=sampler)
+
+
 def rollout_fn(cfg: Config):
     """The rollout ``eval.rollout_mode`` names, after the normalization
-    guard."""
+    guard, or the CTG++ rollout."""
+    if cfg.model.ctg_plus_plus:
+        return _ctg_rollout
     check_streaming_normalization(cfg)
     return run_streaming if cfg.eval.rollout_mode == "streaming" else run_closed_loop
 
@@ -159,8 +171,6 @@ class PolicyEvaluator:
     card unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, cfg: Config, model, lane_batch: int = 32, device: torch.device | str | None = None):
-        if cfg.model.ctg_plus_plus:
-            raise NotImplementedError("the CTG++ closed-loop policy is not ported yet (ROADMAP.md §1 item 3)")
         self.cfg = cfg
         self.model = model
         self.lane_batch = lane_batch
@@ -174,10 +184,11 @@ class PolicyEvaluator:
             cfg.waymo, device=self.device,
         )
 
-    def chunks(self, scenes: list[Scenario]) -> list[tuple[Scenario, np.ndarray, GroupSpec]]:
+    def chunks(self, scenes: list[Scenario]) -> list[tuple[Scenario, np.ndarray, GroupSpec | None]]:
         """(stacked numpy scenes, controlled [E, A], focal groups) of every
         chunk: vehicles selected per scene (scenes with none are dropped),
-        groups built per chunk and padded to the largest group count."""
+        groups built per chunk and padded to the largest group count (none
+        for CTG++)."""
         cfg = self.cfg
         rng = pyrandom.Random(cfg.eval.seed)
         selected = []
@@ -194,15 +205,18 @@ class PolicyEvaluator:
             controlled = np.zeros((len(chunk), batch.traj_position.shape[1]), dtype=bool)
             for e, (_, vehicles) in enumerate(chunk):
                 controlled[e, vehicles] = True
+            if cfg.model.ctg_plus_plus:
+                out.append((batch, controlled, None))
+                continue
             groups = build_focal_groups(
                 cfg, np.asarray(batch.traj_position), np.asarray(batch.traj_valid).astype(bool),
                 np.asarray(batch.agent_valid).astype(bool), controlled, crop_size=crop, device=self.device,
             )
             out.append((batch, controlled, groups))
-        max_g = max((g.num_groups for _, _, g in out), default=1)
-        return [(b, c, pad_groups(g, max_g)) for b, c, g in out]
+        max_g = max((g.num_groups for _, _, g in out if g is not None), default=1)
+        return [(b, c, g if g is None else pad_groups(g, max_g)) for b, c, g in out]
 
-    def rollout(self, batch: Scenario, controlled: np.ndarray, groups: GroupSpec,
+    def rollout(self, batch: Scenario, controlled: np.ndarray, groups: GroupSpec | None,
                 generator: torch.Generator | None, sampler=None):
         """One chunk's rollout on the evaluator's device."""
         sc = to_torch(dataclasses.replace(batch, name=""), self.device)
@@ -212,7 +226,8 @@ class PolicyEvaluator:
     def evaluate(self, scenes: list[Scenario], samplers: list | None = None) -> dict:
         """The Table-1 metrics over ``scenes`` ({} when no scene has a
         vehicle to evaluate). ``samplers[i]``, where given, replaces the
-        policy's draws in chunk i (tests replay given draws through it)."""
+        policy's draws in chunk i (tests replay given draws through it; for
+        CTG++ a per-replan noise source)."""
         chunks = self.chunks(scenes)
         if not chunks:
             return {}

@@ -9,7 +9,7 @@ future-state MSE, the Python shift loop replaced by a gather.
 
 The DT, IL and trajeglish families are token layouts of the same model
 (``model.decision_transformer`` / ``il`` / ``trajeglish``); the CTG++
-family is not ported and raises ``NotImplementedError``.
+family is a model of its own, ``models/ctg_plus_plus.py:CTGPlusPlus``.
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ class CtRLSim(nn.Module):
     def __init__(self, cfg: Config, device: torch.device | str | None = None):
         super().__init__()
         mc = cfg.model
-        if mc.ctg_plus_plus:
-            raise NotImplementedError("the CTG++ family is not ported")
         device = resolve_device(device)
         self.cfg = cfg
         self.compute_dtype = getattr(torch, mc.compute_dtype)

@@ -1,15 +1,18 @@
-"""Parameters of the port's ``CtRLSim``: random initialization from a seeded
-``torch.Generator``, and the mapping of the JAX model's flax params.
+"""Parameters of the port's models (``CtRLSim``, ``CTGPlusPlus``): random
+initialization from a seeded ``torch.Generator``, and the mapping of the
+JAX models' flax params.
 
-``from_flax_params`` takes the JAX model's params as nested dicts of numpy
-arrays (``{"params": {"encoder": ..., "decoder": ...}}`` or the inner dict)
-and returns the port's ``state_dict``:
+``from_flax_params`` takes a JAX model's params as nested dicts of numpy
+arrays (``{"params": {"encoder": ..., "decoder": ...}}`` or the inner dict;
+for CTG++ ``{"diffusion": {"model": ...}, "rtg_model": ...}``) and returns
+the port's ``state_dict``:
 
 - a flax ``Dense`` kernel [in, out] becomes the Linear weight [out, in];
 - a ``LayerNorm`` scale and an ``Embed`` embedding become ``weight``;
 - ``decoder_layer_i`` -> ``layers.i``, ``encoder_layer_i`` ->
   ``encoder_layers.i``, and inside an ``MLPLayer`` ``Dense_0`` / ``LayerNorm_0``
-  / ``Dense_1`` -> ``fc1`` / ``norm`` / ``fc2``.
+  / ``Dense_1`` -> ``fc1`` / ``norm`` / ``fc2``; other auto-named flax
+  modules (CTG++'s ``SingleInputEmbedding``) keep their names.
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ _RENAMES = {"Dense_0": "fc1", "LayerNorm_0": "norm", "Dense_1": "fc2"}
 
 
 def _flatten(tree, prefix=()):
+    """(module path, leaf) pairs; inside an ``MLPLayer`` (a dict of exactly
+    its three auto-named modules) the names become the port's."""
+    mlp = set(tree) == set(_RENAMES)
     for key, value in tree.items():
         if isinstance(value, dict):
-            yield from _flatten(value, prefix + (key,))
+            yield from _flatten(value, prefix + (_RENAMES[key] if mlp else key,))
         else:
             yield prefix + (key,), value
 
@@ -48,7 +54,7 @@ def from_flax_params(tree: dict) -> dict[str, torch.Tensor]:
             if hit:
                 names += ["layers" if hit.group(1) == "decoder" else "encoder_layers", hit.group(2)]
             else:
-                names.append(_RENAMES.get(m, m))
+                names.append(m)
         if leaf == "kernel":
             names.append("weight")
             arr = arr.T

@@ -22,14 +22,18 @@ Examples:
       --val_dir /data/offline_rl/val --val_every 1000 --steps 200000
 
 ``--preset`` picks the model family: ``ctrl_sim`` (the default), ``dt``,
-``il`` or ``trajeglish``, each trained on the CtRL-Sim batch. With
-``--val_dir`` and ``--val_every``, every ``val_every`` steps the loss of a
-batch of the validation scenes (drawn by a stream of its own) is printed
-as ``[val] step=... val_loss=...``, logged, and saved with that step's
-checkpoint, and the checkpoint with the lowest ``val_loss`` is kept beside
-the last ``train.keep_last_n``. ``--native_loader`` reads the JSONs with
-the C++ loader. Not ported yet, and refused: ``--preset ctg_plus_plus``,
-``--distributed`` (the multi-device learner).
+``il`` or ``trajeglish``, each trained on the CtRL-Sim batch, or
+``ctg_plus_plus``, the diffusion baseline (``CTGTrainer`` on CTG++ batches,
+lr 2e-4, accumulation 2; its lines print the diffusion, first-action and
+RTG losses, and it logs no gradient norms). With ``--val_dir`` and
+``--val_every``, every ``val_every`` steps the loss of a batch of the
+validation scenes (drawn by a stream of its own) is printed as ``[val]
+step=... val_loss=...`` (CTG++: ``state_mse=... action_mse=...`` of
+sampled futures, and ``state_mse`` selects), logged, and saved with that
+step's checkpoint, and the checkpoint with the lowest ``val_loss`` is kept
+beside the last ``train.keep_last_n``. ``--native_loader`` reads the JSONs
+with the C++ loader. Not ported yet, and refused: ``--distributed`` (the
+multi-device learner).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from ctrl_sim_tpu_torch.config import Config, _set_dotted, preset
 from ctrl_sim_tpu_torch.data.store import ScenarioStore
 from ctrl_sim_tpu_torch.data.synthetic import synthetic_scenario
 from ctrl_sim_tpu_torch.device import resolve_device
-from ctrl_sim_tpu_torch.training import Trainer
+from ctrl_sim_tpu_torch.training import trainer_for
 from ctrl_sim_tpu_torch.training.checkpoint import CheckpointManager
 from ctrl_sim_tpu_torch.training.trainer import (
     DATA_STREAM,
@@ -127,7 +131,9 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[train] validation store: {val_store.num_scenes} scenes")
 
     seed = cfg.train.seed
-    trainer = Trainer(cfg, device=device)
+    is_ctg = cfg.model.ctg_plus_plus
+    family = "ctg_plus_plus" if is_ctg else "ctrl_sim"
+    trainer = trainer_for(cfg, device=device)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
 
     save_dir = args.save_dir or cfg.train.save_dir
@@ -139,12 +145,12 @@ def main(argv: list[str] | None = None) -> None:
     logger = MetricsLogger(save_dir, track=cfg.train.track)
     train_step = trainer.make_train_step()
     eval_step = trainer.make_eval_step()
-    grad_norm_fn = trainer.make_grad_norm_fn() if cfg.train.log_grad_norms else None
+    grad_norm_fn = trainer.make_grad_norm_fn() if cfg.train.log_grad_norms and not is_ctg else None
 
     t0 = time.time()
     step = state.step
     while step < cfg.train.max_steps:
-        batch = store.sample_batch(step_generator(seed, step, DATA_STREAM, device), batch_size)
+        batch = store.sample_batch(step_generator(seed, step, DATA_STREAM, device), batch_size, family=family)
         state, losses = train_step(state, batch, step_generator(seed, step, DROPOUT_STREAM, device))
         step = state.step
         if step % args.log_every == 0:
@@ -157,19 +163,37 @@ def main(argv: list[str] | None = None) -> None:
                 gen = step_generator(seed, step, GRAD_NORM_STREAM, device)
                 row.update({k: float(v) for k, v in grad_norm_fn(state, batch, gen).items()})
             logger.log(step, row)
-            print(
-                f"[train] step={step} loss={total:.4f} "
-                f"actions={float(losses.loss_actions):.4f} "
-                f"rtg={float(losses.loss_rtg_goal):.4f}/"
-                f"{float(losses.loss_rtg_veh):.4f}/"
-                f"{float(losses.loss_rtg_road):.4f} "
-                f"state={float(losses.loss_state):.4f} "
-                f"steps/s={args.log_every / dt:.2f}"
-            )
+            if is_ctg:
+                print(
+                    f"[train] step={step} loss={total:.4f} "
+                    f"diffusion={float(losses.diffusion_loss):.4f} "
+                    f"a0={float(losses.a0_loss):.4f} "
+                    f"rtg={float(losses.rtg_goal):.4f}/"
+                    f"{float(losses.rtg_veh):.4f}/"
+                    f"{float(losses.rtg_road):.4f} "
+                    f"steps/s={args.log_every / dt:.2f}"
+                )
+            else:
+                print(
+                    f"[train] step={step} loss={total:.4f} "
+                    f"actions={float(losses.loss_actions):.4f} "
+                    f"rtg={float(losses.loss_rtg_goal):.4f}/"
+                    f"{float(losses.loss_rtg_veh):.4f}/"
+                    f"{float(losses.loss_rtg_road):.4f} "
+                    f"state={float(losses.loss_state):.4f} "
+                    f"steps/s={args.log_every / dt:.2f}"
+                )
         if args.val_every and val_store is not None and step % args.val_every == 0:
-            vb = val_store.sample_batch(step_generator(seed, step, VAL_STREAM, device), batch_size)
-            val_metric = float(eval_step(state, vb).total)
-            print(f"[val] step={step} val_loss={val_metric:.4f}")
+            val_gen = step_generator(seed, step, VAL_STREAM, device)
+            vb = val_store.sample_batch(val_gen, batch_size, family=family)
+            if is_ctg:
+                # checkpoint selection by state_mse (the reference train.py:38-46 monitor)
+                vm = eval_step(state, vb, val_gen)
+                val_metric = float(vm["state_mse"])
+                print(f"[val] step={step} state_mse={val_metric:.4f} action_mse={float(vm['action_mse']):.4f}")
+            else:
+                val_metric = float(eval_step(state, vb).total)
+                print(f"[val] step={step} val_loss={val_metric:.4f}")
             logger.log(step, {"val_loss": val_metric})
             mgr.save(step, state, metrics={"val_loss": val_metric})
         elif step % args.ckpt_every == 0:

@@ -1,5 +1,5 @@
 """Training: optimizer, train step with accumulation, checkpointing."""
 
-from ctrl_sim_tpu_torch.training.trainer import TrainState, Trainer, make_optimizer
+from ctrl_sim_tpu_torch.training.trainer import CTGTrainer, TrainState, Trainer, make_optimizer, trainer_for
 
-__all__ = ["TrainState", "Trainer", "make_optimizer"]
+__all__ = ["CTGTrainer", "TrainState", "Trainer", "make_optimizer", "trainer_for"]

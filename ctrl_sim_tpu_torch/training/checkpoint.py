@@ -18,7 +18,7 @@ import re
 import torch
 
 from ctrl_sim_tpu_torch.config import Config
-from ctrl_sim_tpu_torch.training.trainer import Trainer, TrainState
+from ctrl_sim_tpu_torch.training.trainer import TrainState, trainer_for
 
 _NAME = re.compile(r"step_(\d+)\.pt")
 
@@ -105,12 +105,11 @@ def checkpoint_config(directory: str, overrides: dict | None = None) -> Config:
 
 def restore_model(cfg: Config, directory: str, device: torch.device | str | None = None, step: int | None = None):
     """(model in eval mode, step) of a checkpoint directory's step (the
-    latest unless ``step`` is given), built from ``cfg`` on ``device`` (the
-    card unless the caller passes "cpu")."""
-    from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim
-
-    trainer = Trainer(cfg, device=device)
-    state = trainer.state_from_model(CtRLSim(cfg, device=trainer.device))
+    latest unless ``step`` is given), the model of ``cfg``'s family
+    (CtRL-Sim or CTG++) on ``device`` (the card unless the caller passes
+    "cpu")."""
+    trainer = trainer_for(cfg, device=device)
+    state = trainer.state_from_model(trainer.new_model())
     state = CheckpointManager(cfg, directory).restore(state, step=step)
     state.model.eval()
     return state.model, state.step

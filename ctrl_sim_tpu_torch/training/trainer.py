@@ -16,8 +16,9 @@ trainer does:
   ``state_dict`` LayerNorm scales and embeddings are ``weight`` too.
 
 The model, the optimizer and the step count live in a ``TrainState`` that
-the train step updates in place and returns. One device; the multi-device
-learner (``parallel/mesh.py``) is not ported.
+the train step updates in place and returns. ``CTGTrainer`` trains the CTG++
+model with the same recipe. One device; the multi-device learner
+(``parallel/mesh.py``) is not ported.
 """
 
 from __future__ import annotations
@@ -120,12 +121,24 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    def new_model(self) -> torch.nn.Module:
+        """The trainer's model, uninitialized, on its device."""
+        return CtRLSim(self.cfg, device=self.device)
+
     def init_state(self, generator: torch.Generator) -> TrainState:
         """A freshly initialized model (``params.init_params``) and its
         optimizer."""
-        model = CtRLSim(self.cfg, device=self.device)
+        model = self.new_model()
         init_params(model, generator)
         return self.state_from_model(model)
+
+    def microbatch_losses(self, model: torch.nn.Module, micro: dict, generator: torch.Generator | None,
+                          draws=None):
+        """The training losses of one microbatch (dropout on). Only the
+        diffusion loss takes replayed draws (``CTGTrainer``)."""
+        if draws is not None:
+            raise ValueError("this trainer's loss draws from its generator alone: draws are CTGTrainer's")
+        return compute_loss(self.cfg, micro, model(micro, deterministic=False, generator=generator))
 
     def state_from_model(self, model: CtRLSim, step: int = 0) -> TrainState:
         return TrainState(step=step, model=model, optimizer=make_optimizer(self.cfg, model))
@@ -135,15 +148,16 @@ class Trainer:
         accum = max(cfg.train.accum_steps, 1)
         schedule = lr_schedule(cfg)
 
-        def train_step(state: TrainState, batch: dict, generator: torch.Generator | None):
+        def train_step(state: TrainState, batch: dict, generator: torch.Generator | None, draws=None):
             """One optimizer update from the batch, split into ``accum``
             microbatches whose gradients are averaged; returns the state
-            and the losses of the last microbatch."""
+            and the losses of the last microbatch. ``draws[i]``, where
+            given, are microbatch i's draws (``CTGTrainer``)."""
             model, opt = state.model, state.optimizer
             model.train()
             opt.zero_grad(set_to_none=True)
-            for micro in _split(batch, accum):
-                losses = compute_loss(cfg, micro, model(micro, deterministic=False, generator=generator))
+            for i, micro in enumerate(_split(batch, accum)):
+                losses = self.microbatch_losses(model, micro, generator, None if draws is None else draws[i])
                 (losses.total / accum).backward()
             # a parameter the family's layout leaves unused (IL's and
             # trajeglish's RTG embeddings) gets a zero gradient, so AdamW
@@ -156,7 +170,7 @@ class Trainer:
                 group["lr"] = schedule(state.step)
             opt.step()
             state.step += 1
-            return state, LossDict(*(x.detach() for x in losses))
+            return state, type(losses)(*(x.detach() for x in losses))
 
         return train_step
 
@@ -164,12 +178,11 @@ class Trainer:
         """Per-parameter gradient 2-norms and the global norm of one
         batch's loss (the reference's on_before_optimizer_step payload);
         the parameters' own gradients are left as they were."""
-        cfg = self.cfg
 
         def fn(state: TrainState, batch: dict, generator: torch.Generator | None) -> dict:
             model = state.model
             named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-            loss = compute_loss(cfg, batch, model(batch, deterministic=False, generator=generator)).total
+            loss = self.microbatch_losses(model, batch, generator).total
             grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
             return grad_norms({n: g for (n, _), g in zip(named, grads) if g is not None})
 
@@ -184,3 +197,40 @@ class Trainer:
             return compute_loss(cfg, batch, state.model(batch, deterministic=True))
 
         return eval_step
+
+
+class CTGTrainer(Trainer):
+    """Trainer of the CTG++ diffusion baseline (counterpart of the JAX
+    package's ``CTGTrainer``; reference models/ctg_plus_plus.py:117-158 +
+    cfgs/train/ctg_plus_plus.yaml): the AdamW partition, schedule and
+    clipping of ``Trainer``, lr 2e-4 and accumulation 2 from the
+    ``ctg_plus_plus`` preset. The loss is the diffusion loss (plus the RTG
+    head's when ``model.use_rtg``); a step reports its last microbatch's
+    losses, as the JAX step's scan carry does. Each microbatch's diffusion
+    steps and noise come from the generator, or from ``draws[i]`` =
+    (steps [b], noise) given to the train step."""
+
+    def new_model(self) -> torch.nn.Module:
+        from ctrl_sim_tpu_torch.models.ctg_plus_plus import CTGPlusPlus
+
+        return CTGPlusPlus(self.cfg, device=self.device)
+
+    def microbatch_losses(self, model, micro, generator, draws=None):
+        return model.loss(micro, generator, draws)
+
+    def make_eval_step(self):
+        """Validation: the sampled futures' state and action MSE, the
+        reference's checkpoint-selection metric (models/ctg_plus_plus.py:79-107)."""
+
+        @torch.no_grad()
+        def eval_step(state: TrainState, batch: dict, generator: torch.Generator | None,
+                      noise_override=None) -> dict:
+            state.model.eval()
+            return state.model.validation_mse(batch, generator, noise_override)
+
+        return eval_step
+
+
+def trainer_for(cfg: Config, device: torch.device | str | None = None) -> Trainer:
+    """The trainer of the config's model family."""
+    return (CTGTrainer if cfg.model.ctg_plus_plus else Trainer)(cfg, device=device)

@@ -1,12 +1,15 @@
-"""Weights of the reference PyTorch CtRL-Sim (a Lightning ``state_dict``,
-keys as in the reference's models/ctrl_sim.py: ``encoder.*`` and
-``decoder.*``) as the JAX model's param tree of numpy arrays, which
-``params.from_flax_params`` turns into the port's ``state_dict``.
+"""Weights of the reference PyTorch models (a Lightning ``state_dict``) as
+the JAX models' param trees of numpy arrays, which
+``params.from_flax_params`` turns into the port's ``state_dict``: CtRL-Sim
+(keys as in the reference's models/ctrl_sim.py: ``encoder.*`` and
+``decoder.*``) and CTG++ (models/ctg_plus_plus.py: ``diff_model.model.*``
+and ``rtg_model.*``).
 
-The port's own copy of the CtRL-Sim part of
-``ctrl_sim_tpu/utils/torch_import.py``, numpy only, for each family that
-shares its backbone (CtRL-Sim, DT, IL, trajeglish; DT embeds its returns
-with Linear layers, the others with embeddings). Mapping:
+The port's own copy of ``ctrl_sim_tpu/utils/torch_import.py``, numpy only:
+``params_from_torch_state`` for each family that shares the CtRL-Sim
+backbone (CtRL-Sim, DT, IL, trajeglish; DT embeds its returns with Linear
+layers, the others with embeddings), ``ctg_params_from_torch_state`` for
+CTG++. Mapping:
 
   Linear weight [out, in]          -> kernel [in, out] (transposed)
   LayerNorm weight/bias            -> scale/bias
@@ -147,6 +150,114 @@ def params_from_torch_state(state: Mapping[str, np.ndarray], cfg: Config) -> dic
     if unused:
         raise ValueError(f"torch tensors not mapped: {unused}")
     return {"params": {"encoder": enc, "decoder": dec}}
+
+
+def _ctg_social(w: _W, p: str) -> dict:
+    """RelativeSocialAttentionLayer (ctg_arch.py:48-193)."""
+    out = {name: w.linear(f"{p}.{name}") for name in (
+        "lin_q_node", "lin_k_node", "lin_k_edge", "lin_v_node", "lin_v_edge", "lin_self", "lin_ih", "lin_hh",
+        "out_proj")}
+    out.update(norm1=w.lnorm(f"{p}.norm1"), norm2=w.lnorm(f"{p}.norm2"), mlp_lin1=w.linear(f"{p}.mlp.0"),
+               mlp_lin2=w.linear(f"{p}.mlp.3"))
+    return out
+
+
+def _ctg_single_input_embedding(w: _W, p: str) -> dict:
+    """SingleInputEmbedding (ctg_arch.py:196-213): Sequential 0/1, 3/4, 6/7."""
+    out = {}
+    for i in range(3):
+        out[f"Dense_{i}"] = w.linear(f"{p}.embed.{3 * i}")
+        out[f"LayerNorm_{i}"] = w.lnorm(f"{p}.embed.{3 * i + 1}")
+    return out
+
+
+def _ctg_map_encoder(w: _W, p: str) -> dict:
+    """MapEncoderPtsMA (ctg_arch.py:262-335)."""
+    return {
+        "road_pts_lin": w.linear(f"{p}.road_pts_lin.0"),
+        "map_seeds": w(f"{p}.map_seeds"),
+        "road_pts_attn_layer": w.mha(f"{p}.road_pts_attn_layer"),
+        "norm1": w.lnorm(f"{p}.norm1"),
+        "norm2": w.lnorm(f"{p}.norm2"),
+        "map_feats_lin1": w.linear(f"{p}.map_feats.0"),
+        "map_feats_lin2": w.linear(f"{p}.map_feats.3"),
+        "road_type_lin": w.linear(f"{p}.road_type_lin.0"),
+        "road_pt_type_mlp_lin1": w.linear(f"{p}.road_pt_type_mlp.0"),
+        "road_pt_type_mlp_lin2": w.linear(f"{p}.road_pt_type_mlp.3"),
+    }
+
+
+def _ctg_trunk(w: _W, p: str, num_layers: int) -> dict:
+    t = {}
+    for i in range(num_layers):
+        for j in range(2):
+            q = f"{p}.temporal_attn_layers.{i}.layers.{j}"
+            t[f"temporal_{i}_{j}"] = {
+                "self_attn": w.mha(f"{q}.self_attn"), "linear1": w.linear(f"{q}.linear1"),
+                "linear2": w.linear(f"{q}.linear2"), "norm1": w.lnorm(f"{q}.norm1"), "norm2": w.lnorm(f"{q}.norm2"),
+            }
+        t[f"social_{i}"] = _ctg_social(w, f"{p}.social_attn_layers.{i}")
+        t[f"map_attn_{i}"] = w.mha(f"{p}.map_attn_layers.{i}")
+    return t
+
+
+def _skip(w: _W, *prefixes: str) -> None:
+    """Mark the tensors under ``prefixes`` consumed without a mapping
+    (frozen tables, schedule buffers, modules the reference builds but
+    never calls)."""
+    w.used.update(k for k in w.store if k.startswith(prefixes))
+
+
+def ctg_params_from_torch_state(state: Mapping[str, np.ndarray], cfg: Config) -> dict:
+    """The JAX ``CTGPlusPlus`` param tree (``{"params": {"diffusion":
+    {"model": ...}, "rtg_model": ...}}``, numpy leaves) from a reference
+    CTG++ Lightning state dict (models/ctg_plus_plus.py):
+    ``diff_model.model.*`` for the DiT denoiser (the reference's attribute
+    ``diffustion_step_encoder`` keeps its spelling) and ``rtg_model.*`` for
+    the RTG head, which is skipped when ``model.use_rtg`` is off. The
+    positional tables and the diffusion schedule buffers are recomputed,
+    not read. A tensor the mapping does not consume raises."""
+    mc = cfg.model
+    layers = mc.num_transformer_encoder_layers
+    w = _W(state)
+    p = "diff_model.model"
+    dit = {
+        "embed_state_action": w.mlp(f"{p}.embed_state_action"),
+        "embed_goal": w.mlp(f"{p}.embed_goal"),
+        "embed_timestep": w.embed(f"{p}.embed_timestep"),
+        "embed_all_elements": w.mlp(f"{p}.embed_all_elements"),
+        "diffusion_step_encoder": w.mlp(f"{p}.diffustion_step_encoder"),
+        "relative_encodings_encoder": _ctg_single_input_embedding(w, f"{p}.relative_encodings_encoder"),
+        "map_encoder": _ctg_map_encoder(w, f"{p}.map_encoder"),
+        "trunk": _ctg_trunk(w, p, layers),
+        "output_mlp": w.mlp(f"{p}.output_mlp"),
+    }
+    if mc.use_rtg:
+        for name in ("embed_rtg_goal", "embed_rtg_veh", "embed_rtg_road"):
+            dit[name] = w.embed(f"{p}.{name}")
+        dit["embed_rtg"] = w.linear(f"{p}.embed_rtg")
+    _skip(w, f"{p}.pos_encoder.pe", "diff_model.betas", "diff_model.alphas_cumprod", "diff_model.sqrt_",
+          "diff_model.log_one_minus", "diff_model.posterior_", "diff_model.loss_fn.")
+    params = {"diffusion": {"model": dit}}
+    if not mc.use_rtg:
+        _skip(w, "rtg_model.")
+    elif any(k.startswith("rtg_model.") for k in w.store):
+        p = "rtg_model"
+        _skip(w, f"{p}.pos_encoder.pe", f"{p}.diffustion_step_encoder.")
+        params["rtg_model"] = {
+            "embed_state_action": w.mlp(f"{p}.embed_state_action"),
+            "embed_goal": w.mlp(f"{p}.embed_goal"),
+            "embed_timestep": w.embed(f"{p}.embed_timestep"),
+            "embed_all_elements": w.mlp(f"{p}.embed_all_elements"),
+            "relative_encodings_encoder": _ctg_single_input_embedding(w, f"{p}.relative_encodings_encoder"),
+            "map_encoder": _ctg_map_encoder(w, f"{p}.map_encoder"),
+            "trunk": _ctg_trunk(w, p, layers),
+            "predict_rtg": w.mlp(f"{p}.predict_rtg"),
+        }
+    unused = sorted(set(w.store) - w.used)
+    if unused:
+        raise ValueError(f"torch tensors not mapped: {unused}")
+    return {"params": params}
 
 
 def golden_state(npz: Mapping[str, np.ndarray], family: str) -> dict[str, np.ndarray]:

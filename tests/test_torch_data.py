@@ -250,7 +250,16 @@ def test_store_round_trip_and_sampling(tmp_path):
     for k in b1:
         assert torch.equal(b1[k], b2[k]), k
     assert b1["agent_states"].shape[:3] == (5, tcfg.waymo.max_num_agents, tcfg.waymo.train_context_length)
-    with pytest.raises(NotImplementedError):
-        store.sample_batch(None, 2, family="ctg_plus_plus")
+    # CTG++ batches, refused until they were ported, come from the same
+    # offline arrays under a CTG++ config (tests/test_torch_ctg_pipeline.py
+    # holds them to the JAX package)
+    store.cfg = dataclasses.replace(tcfg, waymo=dataclasses.replace(tcfg.waymo, input_horizon=3),
+                                    model=dataclasses.replace(tcfg.model, ctg_plus_plus=True))
+    c1, c2 = (store.sample_batch(torch.Generator().manual_seed(4), 5, family="ctg_plus_plus") for _ in range(2))
+    assert c1["agent_past_states"].shape == (5, tcfg.waymo.max_num_agents, 3, 8)
+    assert c1["agent_future_states"].shape == (5, tcfg.waymo.max_num_agents, tcfg.waymo.train_context_length - 3, 6)
+    assert all(torch.equal(c1[k], c2[k]) for k in c1)
+    with pytest.raises(ValueError):
+        store.sample_batch(None, 2, family="no_such_family")
     with pytest.raises(FileNotFoundError):  # the loaders are ported: a directory without scene JSONs
         ScenarioStore.from_json_dir(tcfg, str(tmp_path))

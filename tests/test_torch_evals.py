@@ -196,9 +196,18 @@ def test_evaluators_refuse_the_card_they_lack_and_ctg():
             tev.PolicyEvaluator(tcfg, model)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PlannerAdversaryEvaluator(tcfg, model)
-    ctg = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, ctg_plus_plus=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        tev.PolicyEvaluator(ctg, model, device="cpu")
+    # the CTG++ closed-loop policy, refused until it was ported, is the
+    # evaluator's CTG++ branch: no tilt, no focal groups
+    # (tests/test_torch_ctg_eval.py runs it)
+    from ctrl_sim_tpu_torch.training import CTGTrainer
+    from torch_port_common import ctg_configs
+
+    _, ctg = ctg_configs()
+    ctg_model = CTGTrainer(ctg, device="cpu").init_state(torch.Generator().manual_seed(0)).model
+    ev = tev.PolicyEvaluator(ctg, ctg_model, device="cpu")
+    assert ev._rollout is tev.rollout_fn(ctg) is not tev.rollout_fn(tcfg)
+    scenes = [_port_scene(jax_synth(ctg, seed=0, num_agents=4))]
+    assert [groups for _, _, groups in ev.chunks(scenes)] == [None]
 
 
 # ------------------------------------------------------------------ guards

@@ -7,7 +7,7 @@ every tensor equal; then imported by the port's CLI
 ``config.json``, restored, and run: the port's forward on the imported
 weights reproduces the reference's logits within the tolerance of
 ``tests/test_torch_goldens.py`` (1e-4 absolute and relative). The CTG++
-layout is refused."""
+layout imports the same way."""
 
 import json
 import os
@@ -79,9 +79,36 @@ def test_import_matches_jax_loader_and_reference_logits(tmp_path, family, capsys
                                    err_msg=name)
 
 
-def test_import_refuses_the_ctg_layout(tmp_path):
-    path = _lightning_file(tmp_path, "ctrl_sim")
-    with pytest.raises(NotImplementedError, match="CTG"):
-        import_checkpoint.main(["--torch", path, "--out", str(tmp_path / "x"), "-o", "model.ctg_plus_plus=true"])
-    with pytest.raises(NotImplementedError):
-        import_checkpoint.main(["--torch", path, "--out", str(tmp_path / "y"), "--preset", "ctg_plus_plus"])
+def test_import_refuses_the_ctg_layout(tmp_path, capsys):
+    """The CTG++ layout, refused until it was ported, imports: a Lightning
+    file of the executed reference's CTG++ weights (denoiser with RTG
+    conditioning, RTG head, schedule buffers) under ``--preset
+    ctg_plus_plus``, restored, reproduces the reference's denoiser and RTG
+    outputs (``tests/test_torch_ctg_goldens.py``'s tolerances). A CtRL-Sim
+    file under a CTG++ config still fails: its tensors are not the layout."""
+    from torch_port_common import CTG_TOY, ctg_golden, ctg_golden_cond, ctg_reference_state
+
+    g = ctg_golden()
+    state = {k: torch.tensor(v) for k, v in ctg_reference_state(g, use_rtg=True).items()}
+    state["diff_model.betas"] = torch.tensor(g["sched_betas"])
+    path = str(tmp_path / "ctg.ckpt")
+    torch.save({"state_dict": state, "epoch": 1}, path)
+    over = {**CTG_TOY, "model.use_rtg": True}
+    flags = [x for k, v in over.items() for x in ("-o", f"{k}={json.dumps(v)}")]
+    out = tmp_path / "imported"
+    import_checkpoint.main(["--torch", path, "--out", str(out), "--preset", "ctg_plus_plus", *flags])
+    assert f"[import] wrote {out}" in capsys.readouterr().out
+    cfg = preset("ctg_plus_plus")
+    for k, v in over.items():
+        cfg = _set_dotted(cfg, k, v)
+    model, step = restore_model(cfg, str(out), "cpu")
+    assert step == 0 and type(model).__name__ == "CTGPlusPlus"
+    cond = {k: torch.as_tensor(v) for k, v in ctg_golden_cond(g).items()}
+    with torch.no_grad():
+        dit = model.diffusion.model(torch.as_tensor(g["in_future_k"]), cond, torch.as_tensor(g["in_diff_step"]))
+        rtg = model.rtg_model(cond)
+    np.testing.assert_allclose(dit.numpy(), g["dit_out"], atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(rtg.numpy(), g["rtg_out"], atol=2e-4, rtol=1e-4)
+    with pytest.raises(KeyError):
+        import_checkpoint.main(["--torch", _lightning_file(tmp_path, "ctrl_sim"), "--out", str(tmp_path / "y"),
+                                "--preset", "ctg_plus_plus"])

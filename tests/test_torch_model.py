@@ -72,7 +72,7 @@ def test_params_map_every_leaf_and_init_is_seeded(setup):
 def test_model_refuses_unported_options():
     """The DT, IL and trajeglish layouts, refused until they were ported,
     build: the port's parameters are the JAX model's param tree, name for
-    name and shape for shape. The CTG++ family stays refused."""
+    name and shape for shape; so do CTG++'s, refused until it was ported."""
     from ctrl_sim_tpu.models.ctrl_sim import CtRLSim as JaxCtRLSim
     from torch_port_common import init_batch
 
@@ -82,5 +82,21 @@ def test_model_refuses_unported_options():
         want = from_flax_params(jax.tree.map(lambda x: np.zeros(x.shape, np.float32), tree))
         got = TorchCtRLSim(tcfg, device="cpu").state_dict()
         assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}, over
-    with pytest.raises(NotImplementedError):
-        TorchCtRLSim(configs(**{"model.ctg_plus_plus": True})[1], device="cpu")
+    # the CTG++ family, refused until it was ported, is a model of its own:
+    # CTGPlusPlus's parameters are the JAX CTGPlusPlus param tree
+    import jax.numpy as jnp
+
+    from ctrl_sim_tpu.models.ctg_plus_plus import CTGPlusPlus as JaxCTG
+    from ctrl_sim_tpu_torch.models.ctg_plus_plus import CTGPlusPlus
+    from torch_port_common import ctg_configs, ctg_golden, ctg_golden_cond
+
+    for use_rtg in (False, True):
+        jcfg, tcfg = ctg_configs(**{"model.use_rtg": use_rtg})
+        cond = {k: jnp.asarray(v) for k, v in ctg_golden_cond(ctg_golden()).items()}
+        batch = {**cond, "agent_future_states": jnp.zeros((2, 4, 3, 6)), "agent_future_actions": jnp.zeros((2, 4, 3, 2))}
+        tree = jax.eval_shape(lambda: JaxCTG(jcfg).init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, batch, jax.random.PRNGKey(2),
+            method=JaxCTG.loss))
+        want = from_flax_params(jax.tree.map(lambda x: np.zeros(x.shape, np.float32), tree))
+        got = CTGPlusPlus(tcfg, device="cpu").state_dict()
+        assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}, use_rtg

@@ -135,8 +135,8 @@ def test_rollout_own_sampler_is_finite_and_seeded(setup):
 def test_rollout_refuses_unported_paths(setup, over):
     """These paths (IL, trajeglish, the 3-pass decode, IL over the int8
     cache) were refused until they were ported; each now rolls out with a
-    model of its own layout and random weights, finite and seeded, and
-    what stays unported, the CTG++ family, is refused by the model.
+    model of its own layout and random weights, finite and seeded; the
+    CTG++ family, refused until it was ported, has a rollout of its own.
     (``tests/test_torch_families_rollout.py`` holds them to the JAX
     rollout.)"""
     _, _, sb, _, controlled, tilt, _ = setup
@@ -152,8 +152,13 @@ def test_rollout_refuses_unported_paths(setup, over):
     assert a.position.shape == (tcfg.sim.steps + 1,) + tuple(ts.traj_position.shape[:2]) + (2,)
     mc = tcfg.model
     assert (a.rtgs != 0).any() == (not (mc.il or mc.trajeglish))  # only the default family samples returns
-    with pytest.raises(NotImplementedError):
-        CtRLSim(configs(**{"model.ctg_plus_plus": True})[1], device="cpu")
+    # the CTG++ family, refused until it was ported, rolls out through a
+    # model and a closed loop of its own (tests/test_torch_ctg_rollout.py)
+    from ctrl_sim_tpu_torch.evals.evaluator import rollout_fn
+    from ctrl_sim_tpu_torch.rollout.ctg_rollout import run_ctg_closed_loop
+
+    ctg = configs(**{"model.ctg_plus_plus": True})[1]
+    assert rollout_fn(ctg).__name__ == "_ctg_rollout" and run_ctg_closed_loop.__module__.endswith("ctg_rollout")
 
 
 def _chi2_ok(draws, probs, n_cat):

@@ -314,6 +314,16 @@ def test_accumulation_refuses_a_batch_it_does_not_divide(setup):
     assert len(_split(tb, 3)) == 3 and all(len(m["actions"]) == 1 for m in _split(tb, 3))
 
 
+def test_the_ctrl_sim_step_refuses_replayed_draws(setup):
+    """Replayed diffusion draws are ``CTGTrainer``'s: the CtRL-Sim step
+    raises on them instead of dropping them."""
+    *_, tm, _, tb = setup
+    _, cfg = configs(**{"model.dropout": 0.0, "model.goal_dropout": 0.0})
+    trainer = Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="CTGTrainer"):
+        trainer.make_train_step()(trainer.state_from_model(tm), tb, None, draws=[("steps", "noise")])
+
+
 def test_entry_points_need_the_card_or_an_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -332,25 +342,23 @@ def test_entry_points_need_the_card_or_an_explicit_cpu():
 
 
 def test_refusals_of_what_is_not_ported(tmp_path, capsys):
-    """The DT, IL and trajeglish presets, refused until they were ported,
-    equal the JAX package's, and ``train.py --preset dt`` takes a step on
-    the CPU. What stays unported is refused: the CTG++ preset and the
-    multi-device learner. The JSON scene loaders are ported: a data or
+    """The DT, IL, trajeglish and CTG++ presets, refused until they were
+    ported, equal the JAX package's, and ``train.py --preset dt`` takes a
+    step on the CPU (``--preset ctg_plus_plus``:
+    ``tests/test_torch_ctg_training.py``). What stays unported is refused:
+    the multi-device learner. The JSON scene loaders are ported: a data or
     validation directory without scene JSONs raises."""
     import dataclasses
 
     from ctrl_sim_tpu.config import preset as jax_preset
 
-    for name in ("ctrl_sim", "dt", "il", "trajeglish"):
+    for name in ("ctrl_sim", "dt", "il", "trajeglish", "ctg_plus_plus"):
         ours, ref = preset(name), jax_preset(name)
-        for section in ("sim", "waymo", "model", "train", "policy", "eval"):
+        for section in ("sim", "waymo", "model", "diffusion", "train", "policy", "eval"):
             assert dataclasses.asdict(getattr(ours, section)) == dataclasses.asdict(getattr(ref, section)), (name, section)
-    with pytest.raises(NotImplementedError):
-        preset("ctg_plus_plus")
     base = ["--device", "cpu", "--save_dir", str(tmp_path)]
-    for extra in (["--distributed"], ["--preset", "ctg_plus_plus"]):
-        with pytest.raises(NotImplementedError):
-            torch_train.main(base + extra)
+    with pytest.raises(NotImplementedError):
+        torch_train.main(base + ["--distributed"])
     (tmp_path / "no_scenes").mkdir()
     for flag in ("--data_dir", "--val_dir"):
         with pytest.raises(FileNotFoundError):

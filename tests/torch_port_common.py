@@ -5,6 +5,7 @@ handed to each side as numpy arrays."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -305,3 +306,165 @@ def replay_jax_rollout(jcfg, tcfg, sb, tm, params, jm, seed: int = 1, logits: di
     if logits is not None:
         logits.update(recorded, actions=sampler.action_logits, rtgs=sampler.rtg_logits)
     return ro, out
+
+
+# ---------------------------------------------------------------------------
+# CTG++: the toy config of tests/test_ctg_golden.py, its executed-reference
+# weights, and the JAX draws the port replays
+# ---------------------------------------------------------------------------
+
+CTG_GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "reference_ctg.npz")
+
+# hidden 32 / 2 heads, 2 trunk layers, 4 agents, horizon 3 + 3, 20 train and
+# 10 eval diffusion steps, f32 (the golden's crops are 5 polylines x 6 points)
+CTG_TOY = {
+    "model.hidden_dim": 32,
+    "model.num_heads": 2,
+    "model.dim_feedforward": 64,
+    "model.num_transformer_encoder_layers": 2,
+    "model.compute_dtype": "float32",
+    "model.n_diffusion_steps": 20,
+    "model.n_eval_diffusion_step": 10,
+    "model.use_rtg": False,
+    "waymo.train_context_length": 6,
+    "waymo.input_horizon": 3,
+    "waymo.max_num_agents": 4,
+    "waymo.rtg_discretization": 20,
+    "waymo.max_num_road_polylines": 5,
+    "waymo.max_num_road_pts_per_polyline": 6,
+    "sim.max_agents": 4,
+}
+
+
+def ctg_configs(**extra):
+    """The ``ctg_plus_plus`` preset with the CTG++ toy overrides (and not
+    the CtRL-Sim ones), from the JAX package and from the port."""
+    from ctrl_sim_tpu.config import _set_dotted as jax_set, preset as jax_preset
+    from ctrl_sim_tpu_torch.config import _set_dotted as torch_set, preset as torch_preset
+
+    jcfg, tcfg = jax_preset("ctg_plus_plus"), torch_preset("ctg_plus_plus")
+    for key, value in {**CTG_TOY, **extra}.items():
+        jcfg, tcfg = jax_set(jcfg, key, value), torch_set(tcfg, key, value)
+    return jcfg, tcfg
+
+
+def ctg_golden() -> dict:
+    with np.load(CTG_GOLDEN) as g:
+        return {k: g[k] for k in g.files}
+
+
+def ctg_golden_cond(g: dict) -> dict:
+    """The golden's conditioning as numpy arrays in the models' layout (the
+    reference's per-agent timesteps [B, N, T, 1] hold one value: [B, T])."""
+    return {
+        "agent_past_states": g["in_agent_past_states"],
+        "agent_past_actions": g["in_agent_past_actions"],
+        "past_relative_encodings": g["in_agent_past_rel_encodings"],
+        "future_relative_encodings": g["in_agent_future_rel_encodings"],
+        "agent_types": g["in_agent_types"],
+        "goals": g["in_goals"],
+        "timesteps": g["in_timesteps"][:, 0, :, 0],
+        "rtgs": g["in_rtgs"],
+        "road_points": g["in_road_points"],
+        "road_types": g["in_road_types"],
+        "moving_agent_mask": g["in_moving_agent_masks"],
+    }
+
+
+def ctg_reference_state(g: dict, use_rtg: bool = False) -> dict:
+    """A reference CTG++ Lightning state dict from the golden's weight
+    dumps: the denoiser without RTG conditioning (``gd_w_``), or with it
+    (``dit_w_``) beside the RTG head (``rtg_w_``)."""
+    def take(pfx: str, to: str) -> dict:
+        return {to + k[len(pfx):]: g[k] for k in g if k.startswith(pfx)}
+
+    if use_rtg:
+        return {**take("dit_w_", "diff_model.model."), **take("rtg_w_", "rtg_model.")}
+    return take("gd_w_", "diff_model.model.")
+
+
+def ctg_models(jcfg, tcfg, g: dict | None = None):
+    """The JAX ``CTGPlusPlus`` with the executed reference's weights (its own
+    importer), and the port's carrying the same weights through
+    ``from_flax_params``."""
+    from ctrl_sim_tpu.models.ctg_plus_plus import CTGPlusPlus as JaxCTG
+    from ctrl_sim_tpu.utils.torch_import import ctg_params_from_torch_state as jax_ctg_params
+    from ctrl_sim_tpu_torch.models.ctg_plus_plus import CTGPlusPlus
+
+    g = ctg_golden() if g is None else g
+    params = jax_ctg_params(ctg_reference_state(g, jcfg.model.use_rtg), jcfg)
+    tm = CTGPlusPlus(tcfg, device="cpu")
+    tm.load_state_dict(from_flax_params(jax.tree.map(np.asarray, params)), strict=True)
+    tm.eval()
+    return JaxCTG(jcfg), params, tm
+
+
+def jax_loss_draws(key, shape: tuple, n_timesteps: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diffusion steps [B] and noise of the JAX ``GaussianDiffusion.loss``
+    under ``key``."""
+    k_t, k_noise = jax.random.split(key)
+    t = jax.random.randint(k_t, (shape[0],), 0, n_timesteps)
+    return torch.as_tensor(np.asarray(t)).long(), torch.as_tensor(np.asarray(jax.random.normal(k_noise, shape)))
+
+
+def jax_sample_noise(key, shape: tuple, n_eval: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``GaussianDiffusion.sample``'s unit-normal draws under
+    ``key`` as its ``noise_override``: (x0 noise, step noises [n_eval, ...])."""
+    rng, k0 = jax.random.split(key)
+    steps = []
+    for _ in range(n_eval):
+        rng, k = jax.random.split(rng)
+        steps.append(np.asarray(jax.random.normal(k, shape)))
+    return torch.as_tensor(np.asarray(jax.random.normal(k0, shape))), torch.as_tensor(np.stack(steps))
+
+
+def jax_ctg_rollout_noise(jcfg, rng, shape: tuple) -> dict:
+    """The sampler draws of every replan of the JAX ``run_ctg_closed_loop``
+    under ``rng``, by step: its carry key is split once a step, and a
+    replan at step t samples with ``fold_in(carry key, t)``."""
+    from ctrl_sim_tpu_torch.rollout.ctg_rollout import replan_steps
+
+    plans, out, key = set(replan_steps(jcfg)), {}, rng
+    for t in range(jcfg.sim.steps):
+        if t in plans:
+            out[t] = jax_sample_noise(jax.random.fold_in(key, t), shape, jcfg.model.n_eval_diffusion_step)
+        key, _ = jax.random.split(key)
+    return out
+
+
+# the CTG++ closed loop's toy: input horizon 10 (replans every 5 steps) + 3
+# future steps, 20 steps with a history of 10 (replans at 9, 14, 19)
+CTG_LOOP = {"waymo.input_horizon": 10, "waymo.train_context_length": 13, "sim.steps": 20,
+            "sim.history_steps": 10, "sim.resolve_contacts": False}
+
+
+def ctg_loop_setup(**extra):
+    """(configs, 2 scenes of 4 agents, the JAX model and params, the port's
+    model, the controlled mask) of the closed-loop toy."""
+    jcfg, tcfg = ctg_configs(**{**CTG_LOOP, **extra})
+    sb = scenes(jcfg, 2, num_agents=4)
+    jm, params, tm = ctg_models(jcfg, tcfg)
+    controlled = sb.moving & sb.agent_valid
+    return jcfg, tcfg, sb, jm, params, tm, controlled
+
+
+def replayed_ctg_rollouts(jcfg, tcfg, sb, jm, params, tm, controlled, seed: int = 2):
+    """The JAX rollout under its key, and the port's under that key's draws."""
+    from ctrl_sim_tpu.rollout.ctg_rollout import run_ctg_closed_loop as jax_run_ctg
+    from ctrl_sim_tpu_torch.rollout.ctg_rollout import run_ctg_closed_loop
+
+    key = jax.random.PRNGKey(seed)
+    ro = jax.jit(lambda s, p, c, k: jax_run_ctg(jcfg, jm, p, s, c, k))(
+        jax_scenario(sb), params, jnp.asarray(controlled), key)
+    ro = jax.tree.map(np.asarray, ro)
+    shape = (2, jcfg.waymo.max_num_agents, jcfg.waymo.train_context_length - jcfg.waymo.input_horizon, 7)
+    noise = jax_ctg_rollout_noise(jcfg, key, shape)
+    out = run_ctg_closed_loop(tcfg, tm, torch_scenario(sb), torch.as_tensor(controlled), None, noise=noise.get)
+    return ro, out
+
+
+def assert_ctg_rollouts_match(ro, out):
+    """Every output stream of the two rollouts within 1e-4."""
+    for name in ro._fields:
+        np.testing.assert_allclose(t2n(getattr(out, name)).astype(np.float64),
+                                   np.asarray(getattr(ro, name)).astype(np.float64), err_msg=name, atol=1e-4, rtol=1e-4)
