@@ -37,7 +37,8 @@ code is 0 only when every phase passed:
    T = 32 x 24 x 3 = 2304, H = 256 = 8 x 32, bf16, dropout 0.1 and 0), then
    at that T and width with B = 4 in bf16 and f32 with dropout 0 and 0.1,
    and in bf16 and f32 a ragged T (29 x 23 x 3 = 2001), the strict mask
-   (``attend_own_return_action``) and a sliding window, and in bf16 head
+   (``attend_own_return_action``), a sliding window and a batch offset of
+   8 in the dropout hash (a data-parallel rank's rows), and in bf16 head
    widths 16 and 64, a ragged strict case at d = 64 and a windowed 2-token
    layout at d = 16: every case has partial tiles on the diagonal;
    tolerances 2e-2 absolute on outputs and 5e-2 of max |grad| on gradients
@@ -167,14 +168,50 @@ code is 0 only when every phase passed:
    (global batch 64 as 2 x 32), losses finite, ms per step and peak
    memory, and one step's device time by kernel; ctg-import: the
    reference-layout import CLI on the small golden's CTG++ weights,
-   restored on the card, within 2e-4 + 1e-4 |ref| of the reference.
+   restored on the card, within 2e-4 + 1e-4 |ref| of the reference;
+13. the observation API and the data-parallel learner and rollout.
+   observe-golden: ``observation_replay`` on the card on the two
+   full-width scenes of ``tests/goldens/reference_observation.npz`` (the
+   JAX package's stream, ``tools/make_observation_goldens.py``; 24 slots,
+   200 x 100 road points, default caps, lights in one, contacts off, 10
+   steps) held to it: features within 1e-4, and every visibility bit that
+   differs (in the mask, or as a row one sorted block has and the other
+   lacks) a near-graze, its smallest separating margin under 1e-4 m; the
+   count printed; observe-replay: ``observation_replay`` at full width on
+   the 32 scenes of ``eval_sim --synthetic 32`` and 8 raw-dialect JSON
+   scenes with traffic lights (``data/export.py``), 90 steps, contacts on:
+   wall, ms per env step and peak memory; its first 2 scenes and 10 steps
+   held the same way to the port on the CPU, and ``feature_image`` of
+   scene 0 from the card's positions equal bit for bit to the image from
+   the CPU's; both hold K1-K4 at zero launches. dist-train: two gloo ranks
+   on ``cuda:0`` (this script with ``--dist-worker train``): one
+   full-width train step, global batch 64 as 4 x 16 (8 rows a rank a
+   microbatch), dropout 0.1, warm-up off, against the single-process step
+   on the same batch, weights and draws (loss within 2e-2, gradients within
+   5e-2 of max |grad|, each tensor's gradient that holds at least 1e-3 of
+   |grad| within 1e-2 of its own 2-norm (3e-2 for CTG++), the weights whose
+   gradient cannot turn sign within 1e-6), 16 K3 and 16 K4 launches a step a
+   rank (k3-k4-vs-plain holds K3/K4 at a rank's launch, rows 8-15 of a
+   global microbatch of 16, against the plain version and bit for bit
+   against the whole microbatch's launch); then a CTG++ step at global batch 16 the same way (no K1-K4);
+   each step's ms beside the single-process step's; dist-cli:
+   ``torchrun --standalone --nproc_per_node 1 -m ctrl_sim_tpu_torch.train
+   --distributed --synthetic 64 --steps 3`` on NCCL, exit 0 and rank 0's
+   checkpoint; dist-rollout: the 256-lane streaming rollout (bf16 cache,
+   contacts on) sharded over two gloo ranks of 128 lanes, each with its own
+   sampler stream, K1 720 times a rank, the gathered outputs equal to the
+   single-process rollout replaying the gathered draws within 1e-4.
 
 Then one line ``{"kernels": [...]}``, each kernel's row with its times
 at the other families' shapes under ``family_shapes`` and K3's at the
 exact rollout's under ``exact_eval_shape`` (B = the eval-exact chunk's
 scenes x groups), ``exact_eval_one_group_shape`` (B = 32) and
 ``multigroup_eval_shape`` (B = 8 G), each row's ``head_width_cases``, K1's
-``r05_shape``, and, last, the device line ``{"ok": true, "device": {...}}``.
+``r05_shape`` and ``dist_rollout_launches_per_rank``, K3's and K4's
+``dist_train_launches_per_rank_step``, and, last, the device line
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --dist-worker
+train|rollout`` is one rank of dist-train or dist-rollout, run by the
+script itself with torchrun's environment variables.
 """
 
 from __future__ import annotations
@@ -447,19 +484,20 @@ def _flash_inputs(B, steps, A, K, heads, d, dtype, gen):
     return [torch.randn((B, T, D), generator=gen, device="cuda").to(dtype) for _ in range(4)]
 
 
-def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed):
+def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed, batch_offset=0):
     """K3 and K4 against the plain version (autograd for the gradients) on
-    one input; returns the errors, outputs' absolute and gradients'
-    relative to max |grad|."""
+    one input, the dropout hash's batch index offset by ``batch_offset``
+    (a data-parallel rank's first row); returns the errors, outputs'
+    absolute and gradients' relative to max |grad|."""
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
 
     dtype = str(q.dtype).removeprefix("torch.")
-    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed)
-    grads = fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed)
+    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, batch_offset)
+    grads = fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed, batch_offset)
     leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
-    want, want_lse = fa.flash_mha_reference(*leaves, spec, heads, dropout_p, seed)
+    want, want_lse = fa.flash_mha_reference(*leaves, spec, heads, dropout_p, seed, batch_offset)
     want_grads = torch.autograd.grad(want, leaves, do.float())
     torch.cuda.synchronize()
     for name, x in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
@@ -475,20 +513,47 @@ def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed):
             f"K3/K4 disagree with the plain version at B={B} T={T} H={D}/{heads} "
             f"{dtype} p={dropout_p}: outputs {out_err} (tol {TOL[dtype]}), gradients "
             f"{grad_err} of max |grad| (tol {GRAD_TOL[dtype]})")
-    return {"shape": f"B={B} T={T} H={D}/{heads} {dtype} p={dropout_p}",
+    return {"shape": f"B={B} T={T} H={D}/{heads} {dtype} p={dropout_p}"
+                     + (f" batch offset {batch_offset}" if batch_offset else ""),
             "out_err": out_err, "grad_err": grad_err, "grad_abs_err": grad_abs}
 
 
-def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen, own=False, window=None):
+def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen, own=False, window=None, batch_offset=0):
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = _flash_inputs(B, steps, A, K, heads, d, getattr(torch, dtype), gen)
     row = _flash_compare(q, k, v, do, fa.MaskSpec(A, K, 0, own, window), heads, dropout_p,
-                         torch.tensor([0x5EED], device="cuda"))
+                         torch.tensor([0x5EED], device="cuda"), batch_offset)
     if own or window:
         row["shape"] += f" own={own} window={window}"
+    return row
+
+
+def _flash_rank_case(gen) -> dict:
+    """K3/K4 at a rank's launch in ``dist-train``: rows 8-15 of a global
+    microbatch of 16 (B = 8, T = 2304, H = 256/8, bf16, dropout 0.1, batch
+    offset 8), against the plain version with the same offset, and equal
+    bit for bit to rows 8-15 of the whole microbatch's launch (offset 0),
+    outputs and gradients alike (the backward has no atomics)."""
+    import torch
+
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    spec, heads, p, seed = fa.MaskSpec(24, 3, 0, False, None), 8, 0.1, torch.tensor([0x5EED], device="cuda")
+    q, k, v, do = _flash_inputs(16, 32, 24, 3, heads, 32, torch.bfloat16, gen)
+    rows = [x[8:].contiguous() for x in (q, k, v, do)]
+    row = _flash_compare(*rows, spec, heads, p, seed, batch_offset=8)
+    whole = fa.flash_mha_fwd(q, k, v, spec, heads, p, seed)
+    whole = (*whole, *fa.flash_mha_bwd(q, k, v, whole[0], do, whole[1], spec, heads, p, seed))
+    part = fa.flash_mha_fwd(*rows[:3], spec, heads, p, seed, 8)
+    part = (*part, *fa.flash_mha_bwd(*rows[:3], part[0], rows[3], part[1], spec, heads, p, seed, 8))
+    row["whole_err"] = max(float((a.float() - b[8:].float()).abs().max()) for a, b in zip(part, whole))
+    if row["whole_err"] != 0.0:
+        raise AssertionError(f"K3/K4 at batch offset 8 differ from rows 8-15 of the whole launch by "
+                             f"{row['whole_err']} (out, lse, dq, dk, dv)")
+    row["shape"] += ", equal to rows 8-15 of the B=16 launch (out, lse, dq, dk, dv)"
     return row
 
 
@@ -2061,12 +2126,609 @@ def _ctg_phases() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 13. the observation API, and the data-parallel learner and rollout
+# ---------------------------------------------------------------------------
+
+OBS_GOLDEN = GOLDEN.with_name("reference_observation.npz")
+OBS_SCENES, OBS_JSON_SCENES, OBS_CPU_SCENES, OBS_CPU_STEPS = 32, 8, 2, 10
+OBS_TOL = 1e-4  # features, card against the golden or the CPU
+GRAZE = 1e-4  # m: a visibility bit may differ only this close to its boundary
+VIEW_DIST, VIEW_ANGLE = 80.0, math.pi * (120.0 / 180.0)
+SORTED_BLOCKS = ("visible_objects", "road_points", "stop_signs", "traffic_lights")
+# family: (global batch, accumulation, bound of the per-tensor gradient check); CTG++'s bf16 step
+# reorders more (its loss differs from one process's by 1.5e-4, CtRL-Sim's by 6.4e-8)
+DIST_TRAIN = {"ctrl_sim": (64, 4, 1e-2), "ctg_plus_plus": (16, 2, 3e-2)}
+DIST_TOL = {"loss": 2e-2, "grad": 5e-2, "param": 1e-6}  # bf16: of |loss|, of max |grad|; the held weights (_dist_train_case)
+GRAD_SHARE = 1e-3  # the per-tensor check skips tensors below this share of |grad| (rounding noise)
+
+
+def _angle_gap(a, b):
+    """|minimum signed angle from a to b| in float64."""
+    import numpy as np
+
+    d = np.mod(b - a, 2 * np.pi)
+    return np.abs(np.where(d > np.pi, d - 2 * np.pi, d))
+
+
+def _corners64(pos, hd, ln, wd):
+    """obb_corners in float64 numpy, [..., 4, 2] counterclockwise."""
+    import numpy as np
+
+    half = np.stack([np.stack([ln, wd], -1) * s for s in ((0.5, 0.5), (-0.5, 0.5), (-0.5, -0.5), (0.5, -0.5))], -2)
+    c, s = np.cos(hd)[..., None], np.sin(hd)[..., None]
+    return np.stack([half[..., 0] * c - half[..., 1] * s, half[..., 0] * s + half[..., 1] * c], -1) + pos[..., None, :]
+
+
+def _segment_box_margin(p0, p1, boxes):
+    """The smallest quantity the corner-form segment test compares with 0,
+    as a distance in m: each box corner from the segment's line, each
+    segment end from each box edge's line. p0, p1 [..., 2]; boxes [..., 4, 2]."""
+    import numpy as np
+
+    cross = lambda a, b: a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]  # noqa: E731
+    d = (p1 - p0)[..., None, :]
+    nd = np.maximum(np.linalg.norm(d, axis=-1), 1e-12)
+    m1 = np.abs(cross(boxes - p0[..., None, :], d)) / nd
+    ed = np.roll(boxes, -1, axis=-2) - boxes
+    ne = np.maximum(np.linalg.norm(ed, axis=-1), 1e-12)
+    m2 = np.minimum(np.abs(cross(p0[..., None, :] - boxes, ed)), np.abs(cross(p1[..., None, :] - boxes, ed))) / ne
+    return np.minimum(m1.min(-1), m2.min(-1))
+
+
+def _cone_margin(rel, ego_heading):
+    """Distance in m of points rel [..., 2] (from the ego) to the view
+    cone's boundary: the radius, and the arc to the half-angle."""
+    import numpy as np
+
+    dist = np.linalg.norm(rel, axis=-1)
+    gap = _angle_gap(ego_heading, np.arctan2(rel[..., 1], rel[..., 0]))
+    return np.minimum(np.abs(dist - VIEW_DIST), dist * np.abs(gap - VIEW_ANGLE / 2))
+
+
+def _object_margin(state, ego: int, a: int) -> float:
+    """The smallest separating margin of object a's visibility from ego
+    (one scene's host state: position, heading, length, width, alive)."""
+    import numpy as np
+
+    pos, hd, ln, wd, alive = state
+    corners = _corners64(pos, hd, ln, wd)
+    p0 = pos[ego]
+    margin = _cone_margin(corners[a] - p0, hd[ego]).min()
+    blockers = [b for b in range(len(pos)) if alive[b] and b not in (a, ego)]
+    if blockers:
+        m = _segment_box_margin(np.broadcast_to(p0, (4, len(blockers), 2)),
+                                np.broadcast_to(corners[a][:, None], (4, len(blockers), 2)), corners[blockers][None])
+        margin = min(margin, float(m.min()))
+    return float(margin)
+
+
+def _point_margin(state, ego: int, visible, point) -> float:
+    """The margin of a road point's visibility: the cone, and the sight
+    segment against each visible object's box."""
+    import numpy as np
+
+    pos, hd, ln, wd, _ = state
+    margin = float(_cone_margin(point - pos[ego], hd[ego]))
+    vis = np.flatnonzero(visible)
+    if len(vis):
+        boxes = _corners64(pos[vis], hd[vis], ln[vis], wd[vis])
+        margin = min(margin, float(_segment_box_margin(np.broadcast_to(pos[ego], (len(vis), 2)),
+                                                       np.broadcast_to(point, (len(vis), 2)), boxes).min()))
+    return margin
+
+
+def _row_point(state, ego: int, row):
+    """The world position of a feature row's object from its (dist, azimuth)."""
+    import numpy as np
+
+    pos, hd = state[0], state[1]
+    ang = hd[ego] + row[2]
+    return pos[ego] + row[1] * np.array([np.cos(ang), np.sin(ang)])
+
+
+def _hold_observation(label: str, got: dict, want: dict, states) -> str:
+    """Hold the card's observation streams ``got`` [T, E, ...] to ``want``
+    (host arrays): features within ``OBS_TOL``; a visibility bit that
+    differs, in the mask or as a row one sorted block has and the other
+    lacks, must be a near-graze (its smallest separating margin under
+    ``GRAZE``, from ``states[t][e]``), and the blocks' other rows must agree
+    in order. Returns a summary; raises otherwise."""
+    import numpy as np
+
+    flips, worst = [], 0.0
+    mask_g, mask_w = got["visible_mask"], want["visible_mask"]
+    for t, e, a in np.argwhere(mask_g != mask_w):
+        flips.append(("visible_mask", t, e, _object_margin(states[t][e], int(want["ego"][e]), int(a))))
+    worst = max(worst, float(np.abs(got["ego_state"] - want["ego_state"]).max()))
+    for key in SORTED_BLOCKS:
+        g_all, w_all = got[key], want[key]
+        for t in range(w_all.shape[0]):
+            for e in range(w_all.shape[1]):
+                g, w = g_all[t, e], w_all[t, e]
+                err = float(np.abs(g - w).max())
+                if err <= OBS_TOL:
+                    worst = max(worst, err)
+                    continue
+                gv, wv = g[g[:, 0] > 0], w[w[:, 0] > 0]
+                near = lambda r, rows: np.flatnonzero((np.abs(rows[:, 1:3] - r[1:3]) <= 1e-3).all(-1))  # noqa: E731
+                only_g = [i for i, r in enumerate(gv) if not len(near(r, wv))]
+                only_w = [i for i, r in enumerate(wv) if not len(near(r, gv))]
+                cap = min(gv[-1, 1] if len(gv) == len(g) else np.inf, wv[-1, 1] if len(wv) == len(w) else np.inf)
+                ego = int(want["ego"][e])
+                for rows, idx in ((gv, only_g), (wv, only_w)):
+                    for i in idx:
+                        if rows[i, 1] >= cap - 1e-3:
+                            continue  # displaced past the K-cap by a flip earlier in the list
+                        if key == "traffic_lights":
+                            raise AssertionError(f"{label}: {key} t={t} scene {e}: a light differs (lights are "
+                                                 f"not filtered by visibility)")
+                        point = _row_point(states[t][e], ego, rows[i])
+                        margin = (_point_margin(states[t][e], ego, mask_w[t, e], point) if key == "road_points"
+                                  else float(_cone_margin(point - states[t][e][0][ego], states[t][e][1][ego])))
+                        flips.append((key, t, e, margin))
+                keep_g = np.delete(gv, only_g, axis=0)
+                keep_w = np.delete(wv, only_w, axis=0)
+                n = min(len(keep_g), len(keep_w))
+                err = float(np.abs(keep_g[:n] - keep_w[:n]).max()) if n else 0.0
+                if err > OBS_TOL:
+                    raise AssertionError(f"{label}: {key} t={t} scene {e}: rows differ by {err:.3g} > {OBS_TOL}")
+                worst = max(worst, err)
+    far = [f for f in flips if f[3] >= GRAZE]
+    if far:
+        raise AssertionError(f"{label}: visibility differs away from a boundary (margin >= {GRAZE} m): {far[:5]}")
+    return (f"features within {worst:.3g} (<= {OBS_TOL}); {len(flips)} visibility bit(s) differ, each a near-graze "
+            f"(margin < {GRAZE} m)" + (f": {flips[:4]}" if flips else ""))
+
+
+class _StateSpy:
+    """Records, per step, each scene's (position, heading, length, width,
+    alive) on the host, as ``WaymoEnv.observe`` sees them: the margins of
+    ``_hold_observation`` are computed from them."""
+
+    def __enter__(self):
+        from ctrl_sim_tpu_torch.env.env import WaymoEnv
+
+        self.states, self._orig = [], WaymoEnv.observe
+        spy = self
+
+        def observe(env, scenario, state, ego_index, **kw):
+            b = state.bodies
+            host = [x.double().cpu().numpy() for x in (b.position, b.heading, scenario.length, scenario.width)]
+            alive = state.alive.cpu().numpy()
+            spy.states.append([tuple(x[e] for x in host) + (alive[e],) for e in range(alive.shape[0])])
+            return spy._orig(env, scenario, state, ego_index, **kw)
+
+        WaymoEnv.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        from ctrl_sim_tpu_torch.env.env import WaymoEnv
+
+        WaymoEnv.observe = self._orig
+
+
+def _torch():
+    import torch
+
+    return torch
+
+
+def _host_streams(obs: dict, ego) -> dict:
+    """Observation streams (and the egos) as host arrays, masks kept bool."""
+    torch = _torch()
+    out = {k: v.cpu().numpy() if v.dtype == torch.bool else v.float().cpu().numpy() for k, v in obs.items()}
+    out["ego"] = ego.cpu().numpy()
+    return out
+
+
+def _observe_golden() -> str:
+    """observation_replay on the card on the golden's two full-width scenes
+    (tools/make_observation_goldens.py, the JAX package on the CPU), held to
+    the golden's streams; K1-K4 never launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch.config import load_config
+    from ctrl_sim_tpu_torch.data import to_torch
+    from ctrl_sim_tpu_torch.data.scenario import Scenario
+    from ctrl_sim_tpu_torch.env.gym import observation_replay
+
+    z = np.load(OBS_GOLDEN)
+    cfg = load_config(json.loads(str(z["overrides"])))
+    names = {f.name for f in dataclasses.fields(Scenario)}
+    sc = to_torch(Scenario(**{k[6:]: z[k] for k in z.files if k.startswith("scene/") and k[6:] in names}), "cuda")
+    ego = torch.as_tensor(z["ego_index"], device="cuda")
+    _zero_counts()
+    with _StateSpy() as spy:
+        obs, traj = observation_replay(cfg, sc, ego)
+        torch.cuda.synchronize()
+    _expect_counts("observe-golden", NO_LAUNCHES)
+    want = {k[4:]: z[k] for k in z.files if k.startswith("obs/")}
+    want["ego"] = z["ego_index"]
+    detail = _hold_observation("observe-golden", _host_streams(obs, ego), want, spy.states)
+    pos_err = float(np.abs(traj["position"].cpu().numpy() - z["traj/position"]).max())
+    if pos_err > OBS_TOL:
+        raise AssertionError(f"observe-golden: replayed positions differ from the golden by {pos_err:.3g}")
+    E, A = sc.traj_position.shape[:2]
+    return (f"{E} scenes x {cfg.sim.steps} steps at full width ({A} slots, {tuple(sc.road_points.shape[1:3])} road "
+            f"points, contacts off as in the golden), every block of the JAX package's stream: {detail}; positions "
+            f"within {pos_err:.3g}; K1-K4 launches 0")
+
+
+def _observe_scenes(cfg):
+    """The 32 synthetic scenes of ``eval_sim --synthetic 32`` and 8 scenes
+    written in the raw JSON dialect with traffic lights and read back."""
+    import tempfile
+
+    import numpy as np
+
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.export import export_raw_json
+    from ctrl_sim_tpu_torch.data.scenario import load_scenario_json
+    from ctrl_sim_tpu_torch.rollout.setup import eval_scenes
+
+    scenes = eval_scenes(cfg, OBS_SCENES)
+    rng = np.random.default_rng(SEED)
+    names = ["unknown", "stop", "caution", "go", "arrow_stop", "arrow_caution", "arrow_go"]
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        for s in range(OBS_JSON_SCENES):
+            scene = synthetic_scenario(cfg, seed=1000 + s, num_agents=12)
+            T1 = scene.traj_position.shape[1]
+            center = scene.traj_position[0, 0]
+            lights = [{"x": [float(center[0] + dx)], "y": [float(center[1] + dy)],
+                       "state": [names[int(i)] for i in rng.integers(0, len(names), T1 // 10)],
+                       "time_index": list(range(0, T1, 10))[:T1 // 10]}
+                      for dx, dy in rng.uniform(-50, 50, (3, 2))]
+            path = work / f"scene_{s}.json"
+            export_raw_json(scene, str(path), tl_states=lights)
+            scenes.append(load_scenario_json(str(path), cfg))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return scenes
+
+
+def _observe_replay() -> str:
+    """observation_replay at full width on the card over 40 scenes x 90
+    steps (contacts on); K1-K4 never launched; its first 2 scenes and 10
+    steps held to the port on the CPU; feature_image of scene 0 from the
+    card's positions equal bit for bit to the image from the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
+    from ctrl_sim_tpu_torch.data import stack_scenarios, to_torch
+    from ctrl_sim_tpu_torch.env.gym import observation_replay
+    from ctrl_sim_tpu_torch.viz import feature_image
+
+    cfg = preset("ctrl_sim")
+    scenes = _observe_scenes(cfg)
+    sc = to_torch(stack_scenarios(scenes, cfg), "cuda")
+    E = sc.traj_position.shape[0]
+    ego = torch.zeros(E, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    start = time.perf_counter()
+    obs, traj = observation_replay(cfg, sc, ego)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    _expect_counts("observe-replay", NO_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for key, value in obs.items():
+        if not torch.isfinite(value.float()).all():
+            raise AssertionError(f"observe-replay: non-finite {key}")
+    lit = float(obs["traffic_lights"][:, OBS_SCENES:, :, 0].sum())
+    if lit <= 0 or obs["traffic_lights"][:, :OBS_SCENES].any():
+        raise AssertionError("observe-replay: the lights block must be non-zero exactly on the JSON scenes")
+
+    small_cfg = _set_dotted(cfg, "sim.steps", OBS_CPU_STEPS)
+    head = dataclasses.replace(sc, **{f.name: getattr(sc, f.name)[:OBS_CPU_SCENES].cpu()
+                                      for f in dataclasses.fields(sc) if torch.is_tensor(getattr(sc, f.name))})
+    with _StateSpy() as spy:
+        cpu_obs, cpu_traj = observation_replay(small_cfg, head, ego[:OBS_CPU_SCENES].cpu())
+    card = {k: v[:OBS_CPU_STEPS, :OBS_CPU_SCENES] for k, v in obs.items()}
+    detail = _hold_observation("observe-replay", _host_streams(card, ego[:OBS_CPU_SCENES]),
+                               _host_streams(cpu_obs, ego[:OBS_CPU_SCENES]), spy.states)
+    t = OBS_CPU_STEPS - 1
+    scene0 = dataclasses.replace(head, **{f.name: getattr(head, f.name)[0]
+                                          for f in dataclasses.fields(head) if torch.is_tensor(getattr(head, f.name))})
+    images = [feature_image(scene0, p[t, 0], scene0.traj_heading[:, t], scene0.agent_valid, ego_index=0)
+              for p in (traj["position"].cpu().numpy(), cpu_traj["position"].numpy())]
+    if not np.array_equal(*images):
+        raise AssertionError(f"observe-replay: feature_image of scene 0 at t={t} differs in "
+                             f"{int((images[0] != images[1]).any(-1).sum())} pixels between the card and the CPU")
+    steps = cfg.sim.steps
+    return (f"{E} scenes ({OBS_SCENES} synthetic, {OBS_JSON_SCENES} raw JSON with lights) x {steps} steps at full "
+            f"width, contacts on: wall {wall:.3f} s = {1e3 * wall / steps:.2f} ms per env step ({E} scenes; one cold "
+            f"run on this card, not a benchmark), peak memory {peak:.2f} GiB; K1-K4 launches 0; first "
+            f"{OBS_CPU_SCENES} scenes x {OBS_CPU_STEPS} steps against the CPU: {detail}; feature_image of scene 0 at "
+            f"t={t} equal bit for bit ({int((images[0] > 0).any(-1).sum())} pixels drawn)")
+
+
+# --- data parallelism: ranks launched as subprocesses of this script -------
+
+
+def _spawn_ranks(worker: str, world: int, timeout: int = 600) -> dict:
+    """Run ``python chip_smoke.py --dist-worker <worker>`` as ``world`` gloo
+    ranks sharing ``cuda:0``, with torchrun's environment variables; returns
+    rank 0's result (its last ``DIST-RESULT`` line)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(__import__("os").environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker", worker],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dist-{worker}: rank {rank} exited {p.returncode}:\n{out[-4000:]}")
+    lines = [line for line in outs[0].splitlines() if line.startswith("DIST-RESULT ")]
+    for line in outs[0].splitlines():
+        if line.startswith("  "):
+            print(line, flush=True)
+    if not lines:
+        raise AssertionError(f"dist-{worker}: rank 0 printed no result:\n{outs[0][-4000:]}")
+    return json.loads(lines[-1][len("DIST-RESULT "):])
+
+
+def _flat(tensors) -> "torch.Tensor":
+    torch = _torch()
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors])
+
+
+def _dist_train_case(mesh, family: str) -> dict | None:
+    """One full-width train step of ``family`` data parallel over ``mesh``
+    (global batch and accumulation from ``DIST_TRAIN``, dropout 0.1,
+    warm-up off so that the step moves the weights), then on rank 0 the
+    single-process step on the same batch, weights and draws; and a second
+    step of each, timed."""
+    torch = _torch()
+    from ctrl_sim_tpu_torch.config import _set_dotted, preset
+    from ctrl_sim_tpu_torch.data import synthetic_scenario
+    from ctrl_sim_tpu_torch.data.store import ScenarioStore
+    from ctrl_sim_tpu_torch.parallel import MeshSpec
+    from ctrl_sim_tpu_torch.profile_train import AGENTS, ARENA, LANE_ROADS
+    from ctrl_sim_tpu_torch.training import trainer_for
+
+    batch_size, accum, tensor_bound = DIST_TRAIN[family]
+    cfg = preset(family)
+    for key, value in {"train.accum_steps": accum, "train.global_batch_size": batch_size,
+                       "train.warmup_steps": 0}.items():
+        cfg = _set_dotted(cfg, key, value)
+    scenes = [synthetic_scenario(cfg, seed=s, num_agents=AGENTS, arena_half=ARENA, num_lanes=LANE_ROADS)
+              for s in range(batch_size)]
+    store = ScenarioStore.from_scenes(cfg, scenes, device="cuda")
+    batches = [store.sample_batch(torch.Generator(device="cuda").manual_seed(SEED + i), batch_size, family=family)
+               for i in range(2)]
+    per_step = cfg.model.num_decoder_layers * accum if family == "ctrl_sim" else 0
+
+    def run(m):
+        trainer = trainer_for(cfg, device="cuda", mesh=m)
+        state = trainer.init_state(torch.Generator().manual_seed(SEED))
+        step = trainer.make_train_step()
+        _zero_counts()
+        state, losses = step(state, batches[0], torch.Generator(device="cuda").manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        launches = _counts()
+        out = {"loss": float(losses.total), "grads": _flat(p.grad for p in state.model.parameters()),
+               "params": _flat(state.model.parameters()), "launches": launches,
+               "tensors": [(n, p.numel()) for n, p in state.model.named_parameters()]}
+        m.barrier()
+        start = time.perf_counter()
+        state, _ = step(state, batches[1], torch.Generator(device="cuda").manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - start) * 1e3
+        m.barrier()
+        del state, trainer
+        torch.cuda.empty_cache()
+        return out
+
+    got = run(mesh)
+    if got["launches"] != (per_step, per_step, 0, 0):
+        raise AssertionError(f"dist-train {family}: rank {mesh.rank} launched (K3, K4, K1, K2) {got['launches']}, "
+                             f"expected ({per_step}, {per_step}, 0, 0)")
+    if mesh.rank != 0:
+        return None
+    want = run(MeshSpec())
+    g, dg = want["grads"].abs(), (got["grads"] - want["grads"]).abs()
+    grad_err = float(dg.max() / g.max())
+    # each tensor's |dg| / |g|, over the tensors holding at least GRAD_SHARE of |g|: a
+    # rank that keys dropout on the wrong rows moves its attention weights' gradients by
+    # some percent, which the whole gradient's max and norm dilute below bf16 rounding
+    names, sizes = zip(*want["tensors"])
+    tensor_err, tensor = max((float(d.norm() / w.norm()), n) for n, d, w in
+                             zip(names, (got["grads"] - want["grads"]).split(sizes), want["grads"].split(sizes))
+                             if w.norm() >= GRAD_SHARE * g.norm())
+    # Adam's first update is lr g / (|g| + eps): held where the gradient is
+    # more than twice the runs' largest gradient difference (its sign
+    # cannot turn) and well above eps
+    kept = g > 2 * dg.max() + 1e-6
+    param_err = float((got["params"][kept] - want["params"][kept]).abs().max())
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    checks = {"loss": (loss_err, DIST_TOL["loss"]), "grad": (grad_err, DIST_TOL["grad"]),
+              "grad_tensor": (tensor_err, tensor_bound), "param": (param_err, DIST_TOL["param"])}
+    for name, (err, bound) in checks.items():
+        print(f"  {family}: {name} {err:.3g} <= {bound:.3g}: {'ok' if err <= bound else 'FAIL'}"
+              + (f" ({tensor})" if name == "grad_tensor" else ""), flush=True)
+    return {"family": family, "batch": batch_size, "accum": accum, "loss": got["loss"], "loss_single": want["loss"],
+            "checks": {k: list(v) for k, v in checks.items()}, "held_share": float(kept.float().mean()),
+            "ms": got["ms"], "ms_single": want["ms"], "launches_per_rank": list(got["launches"]),
+            "params": int(g.numel())}
+
+
+def _dist_rollout_case(mesh) -> dict | None:
+    """The 256-lane streaming rollout (bf16 cache, contacts on) sharded over
+    ``mesh``'s env axis, each rank drawing from its own generator; on rank 0
+    the single-process rollout replaying the gathered draws."""
+    torch = _torch()
+    from ctrl_sim_tpu_torch.parallel.mesh import run_sharded
+    from ctrl_sim_tpu_torch.rollout.policy import PolicySampler
+    from ctrl_sim_tpu_torch.rollout.setup import full_width_rollout
+    from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
+
+    class Recording:  # the draws alone (the logits stay on the card)
+        def __init__(self, inner):
+            self.inner, self.rtg, self.act = inner, [], []
+
+        def rtgs(self, t, logits, tilt):
+            self.rtg.append(self.inner.rtgs(t, logits, tilt))
+            return self.rtg[-1]
+
+        def actions(self, t, logits):
+            self.act.append(self.inner.actions(t, logits))
+            return self.act[-1]
+
+    class Replay:
+        def __init__(self, rtg, act):
+            self.rtg, self.act = rtg, act
+
+        def rtgs(self, t, logits, tilt):
+            return self.rtg[t]
+
+        def actions(self, t, logits):
+            return self.act[t]
+
+    cfgs, models, sc, controlled, tilt = full_width_rollout(SEED)
+    cfg, model = cfgs["bf16"], models["bf16"]
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + mesh.rank)  # a stream of the rank's own
+    rec = Recording(PolicySampler(cfg, gen))
+    mesh.barrier()
+    _zero_counts()
+    start = time.perf_counter()
+    out = run_sharded(mesh, run_streaming, cfg, model, sc, controlled, gen, tilt_logits=tilt, sampler=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = _counts()
+    expected = _decode_passes(cfg) * cfg.model.num_decoder_layers * cfg.sim.steps
+    if launches != (0, 0, expected, 0):
+        raise AssertionError(f"dist-rollout: rank {mesh.rank} launched (K3, K4, K1, K2) {launches}, "
+                             f"expected (0, 0, {expected}, 0)")
+    rtg = [mesh.gather(x, axis=0) for x in rec.rtg]
+    act = [mesh.gather(x, axis=0) for x in rec.act]
+    if mesh.rank != 0:
+        return None
+    start = time.perf_counter()
+    want = run_streaming(cfg, model, sc, controlled, None, tilt, sampler=Replay(rtg, act))
+    torch.cuda.synchronize()
+    single = time.perf_counter() - start
+    errs = {name: float((getattr(out, name).float() - getattr(want, name).float()).abs().max())
+            for name in want._fields}
+    return {"lanes": int(sc.traj_position.shape[0]), "per_rank": int(sc.traj_position.shape[0]) // mesh.world,
+            "launches_per_rank": launches[2], "errs": errs, "wall_s": wall, "single_s": single}
+
+
+def _dist_worker(worker: str) -> int:
+    """One rank of dist-train or dist-rollout (``--dist-worker``)."""
+    torch = _torch()
+    from ctrl_sim_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(backend="gloo", device="cuda:0")
+    mesh = make_mesh()
+    if worker == "train":
+        result = [_dist_train_case(mesh, family) for family in DIST_TRAIN]
+    else:
+        result = _dist_rollout_case(mesh)
+    if mesh.rank == 0:
+        print("DIST-RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dist_train() -> tuple[int, str]:
+    rows = _spawn_ranks("train", 2)
+    bad = [(r["family"], k) for r in rows for k, (err, bound) in r["checks"].items() if not err <= bound]
+    if bad:
+        raise AssertionError(f"dist-train: the 2-rank step differs from the single-process step: {bad}")
+    return rows[0]["launches_per_rank"][0], "; ".join(
+        f"{r['family']}: global batch {r['batch']} = {r['accum']} x {r['batch'] // r['accum']}, "
+        f"{r['batch'] // r['accum'] // 2} rows a rank a microbatch; loss {r['loss']:.5f} (single process "
+        f"{r['loss_single']:.5f}); " + ", ".join(f"{k} {e:.3g} <= {b:.3g}" for k, (e, b) in r["checks"].items())
+        + f" ({100 * r['held_share']:.2f}% of {r['params']} weights held to 1e-6); (K3, K4) launches per rank "
+        f"{tuple(r['launches_per_rank'][:2])}; ms per step (second step, 2 gloo ranks on one card) "
+        f"{r['ms']:.1f}, single process {r['ms_single']:.1f}" for r in rows)
+
+
+def _dist_rollout() -> tuple[int, str]:
+    r = _spawn_ranks("rollout", 2)
+    bad = {k: v for k, v in r["errs"].items() if not v <= 1e-4}
+    if bad or r["launches_per_rank"] != 720:
+        raise AssertionError(f"dist-rollout: gathered outputs differ from the replayed single-process rollout "
+                             f"{bad}, K1 per rank {r['launches_per_rank']}")
+    return r["launches_per_rank"], (f"{r['lanes']} lanes as 2 gloo ranks x {r['per_rank']} on one card, 90 steps, bf16 cache, contacts on; K1 "
+            f"launches per rank {r['launches_per_rank']}; gathered outputs equal the single-process rollout under "
+            f"the gathered draws (max |d| {max(r['errs'].values()):.3g} <= 1e-4); sharded wall {r['wall_s']:.3f} s, "
+            f"single-process replay {r['single_s']:.3f} s (one cold run on this card, not a benchmark)")
+
+
+def _dist_cli() -> str:
+    """``torchrun --standalone --nproc_per_node 1 -m ctrl_sim_tpu_torch.train
+    --distributed`` on NCCL: exit 0 and rank 0's checkpoint."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        start = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                              "-m", "ctrl_sim_tpu_torch.train", "--distributed", "--synthetic", "64", "--steps", "3",
+                              "--log_every", "1", "-o", "train.accum_steps=4", "--save_dir", str(work)],
+                             capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+        wall = time.perf_counter() - start
+        if run.returncode != 0 or not (work / "step_3.pt").exists():
+            raise AssertionError(f"dist-cli: exit {run.returncode}, checkpoint {list(work.iterdir())}:\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        lines = [line for line in run.stdout.splitlines() if line.startswith("[train]")]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not any("devices=1" in line for line in lines) or not any("step=3" in line for line in lines):
+        raise AssertionError(f"dist-cli: unexpected output {lines}")
+    return f"torchrun, 1 NCCL rank: exit 0, rank 0's step_3.pt written, {wall:.1f} s; " + "; ".join(lines[-2:])
+
+
+def _observe_dist_phases() -> dict:
+    """Section 13 of the docstring. Returns the launches per rank of the
+    data-parallel paths: K3/K4 a train step, K1 a rollout."""
+    torch = _torch()
+    launches = {}
+    for name, fn in (("observe-golden", _observe_golden), ("observe-replay", _observe_replay),
+                     ("dist-train", _dist_train), ("dist-cli", _dist_cli), ("dist-rollout", _dist_rollout)):
+        t0 = time.perf_counter()
+        detail = fn()
+        if isinstance(detail, tuple):
+            launches[name], detail = detail
+        _phase(name, t0, detail)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":  # a rank of dist-train or dist-rollout
+        return _dist_worker(sys.argv[2])
     try:
         from ctrl_sim_tpu_torch.ops import attention, build
         from ctrl_sim_tpu_torch.ops import flash_attention as fa
@@ -2189,6 +2851,9 @@ def main() -> int:
     flash["wide bfloat16"] = _flash_case(4, 32, 24, 3, 4, 64, "bfloat16", 0.1, gen)
     flash["wide ragged strict bfloat16 p=0"] = _flash_case(2, 9, 7, 3, 2, 64, "bfloat16", 0.0, gen, own=True)
     flash["narrow window 2-token bfloat16"] = _flash_case(3, 20, 5, 2, 4, 16, "bfloat16", 0.1, gen, window=3)
+    for dtype in ("bfloat16", "float32"):  # a data-parallel rank's rows 8-11 of a global microbatch
+        flash[f"batch offset {dtype}"] = _flash_case(4, 12, 24, 3, 8, 32, dtype, 0.1, gen, batch_offset=8)
+    flash["dist-train rank 1 bfloat16"] = _flash_rank_case(gen)
     for d in WIDTH_CASES:  # head widths with no kernel instance: each head padded to the next
         flash[f"d={d} float32"] = _flash_case(4, 12, 24, 3, 4, d, "float32", 0.1, gen)
         flash[f"d={d} ragged strict bfloat16"] = _flash_case(2, 9, 7, 3, 4, d, "bfloat16", 0.1, gen, own=True)
@@ -2330,6 +2995,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     r05_k1 = _trained_phases(gen)
     _ctg_phases()
+    dist_launches = _observe_dist_phases()
 
     main_rows = [cases["pass1 bfloat16"], cases["pass2 bfloat16"]]  # the path's two shapes, 360 launches each
     mean = lambda key: statistics.fmean(r[key] for r in main_rows)  # noqa: E731
@@ -2382,6 +3048,7 @@ def main() -> int:
                                                            "3-pass": "3-pass", "3-pass t=0": "3-pass"}),
             "head_width_cases": width_rows(cases),
             "r05_shape": [{**r, "kernel": "decode_attention_kernel<16> (f32)"} for r in r05_k1],
+            "dist_rollout_launches_per_rank": dist_launches["dist-rollout"],
         },
         {
             "name": "cached_decode_attention_q8",
@@ -2422,6 +3089,7 @@ def main() -> int:
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("fwd"),
             "head_width_cases": flash_width_rows("fwd"),
+            "dist_train_launches_per_rank_step": dist_launches["dist-train"],
             "exact_eval_shape": {**k3_eval, "launches_per_chunk": ev_launches},
             "exact_eval_one_group_shape": {**k3_b32, "launches_per_chunk": None},
             "multigroup_eval_shape": {**k3_multigroup, "launches_per_chunk": ev_launches},
@@ -2444,6 +3112,7 @@ def main() -> int:
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("bwd"),
             "head_width_cases": flash_width_rows("bwd"),
+            "dist_train_launches_per_rank_step": dist_launches["dist-train"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -222,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const long long* __restrict__ seed_ptr, T* __restrict__ o, float* __restrict__ lse,
                  int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
-                 uint32_t threshold, int use_dropout) {
+                 uint32_t threshold, int use_dropout, int b_off) {
   constexpr int DP = D + 4;  // padded rows: float4 reads across lanes hit distinct banks
   constexpr int DCH = (D + 31) / 32;
   __shared__ __align__(16) float qs[kTile][D];
@@ -302,7 +302,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < DCH; ++c) acc[r][c] *= alpha;
       m[r] = m_new;
-      const bool keep = !use_dropout || (j < n_end && keep_bit(seed, b, h, i, j, threshold));
+      const bool keep = !use_dropout || (j < n_end && keep_bit(seed, b + b_off, h, i, j, threshold));
       ps[warp][r][lane] = keep ? p : 0.f;
     }
     __syncwarp();
@@ -352,7 +352,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
                     const long long* __restrict__ seed_ptr, T* __restrict__ dq, float* __restrict__ delta,
                     int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
-                    uint32_t threshold, int use_dropout) {
+                    uint32_t threshold, int use_dropout, int b_off) {
   constexpr int DP = D + 4;
   constexpr int DCH = (D + 31) / 32;
   __shared__ __align__(16) float qs[kTile][D];
@@ -436,7 +436,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const bool vis = j < n_end && i < n && visible(ti[r], ai[r], i, tj, aj, kj, j, spec);
       const float p = vis ? exp2f(s[r] * sl2 - lse2[r]) : 0.f;
       float dp = dpd[r];
-      if (use_dropout) dp = (vis && keep_bit(seed, b, h, i, j, threshold)) ? dp * inv_keep : 0.f;
+      if (use_dropout) dp = (vis && keep_bit(seed, b + b_off, h, i, j, threshold)) ? dp * inv_keep : 0.f;
       dss[warp][r][lane] = p * (dp - dlt[r]) * scale;
     }
     __syncwarp();
@@ -484,7 +484,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, const long long* __restrict__ seed_ptr,
                       T* __restrict__ dk, T* __restrict__ dv, int n, int H, int heads, MaskSpec spec,
-                      float scale, float inv_keep, uint32_t threshold, int use_dropout) {
+                      float scale, float inv_keep, uint32_t threshold, int use_dropout, int b_off) {
   constexpr int DP = D + 4;
   constexpr int DCH = (D + 31) / 32;
   __shared__ __align__(16) float ks[kTile][D];
@@ -582,7 +582,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       const float p = vis ? exp2f(s[r] * sl2 - lse_i) : 0.f;
       float pd = p, dp = dpd[r];
       if (use_dropout) {
-        const bool keep = vis && keep_bit(seed, b, h, i, j, threshold);
+        const bool keep = vis && keep_bit(seed, b + b_off, h, i, j, threshold);
         pd = keep ? p * inv_keep : 0.f;
         dp = keep ? dp * inv_keep : 0.f;
       }
@@ -707,14 +707,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      const __nv_bfloat16* __restrict__ v, const long long* __restrict__ seed_ptr,
                      const int* __restrict__ table, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                      int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
-                     uint32_t threshold, int use_dropout) {
+                     uint32_t threshold, int use_dropout, int b_off) {
   __shared__ __align__(128) KVStages<D> sm;
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = tr.tile * kBlock + warp * 16;
   const size_t base = (size_t)b * n * H + (size_t)h * D;
-  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
   const int ak = spec.A * spec.K;
   const float sl2 = scale * kLog2e;  // scores in log2 units
 
@@ -841,7 +841,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         const long long* __restrict__ seed_ptr, const int* __restrict__ table,
                         __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int n, int H, int heads,
-                        MaskSpec spec, float scale, float inv_keep, uint32_t threshold, int use_dropout) {
+                        MaskSpec spec, float scale, float inv_keep, uint32_t threshold, int use_dropout,
+                        int b_off) {
   __shared__ __align__(128) KVStages<D> sm;
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
@@ -849,7 +850,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int r0 = tr.tile * kBlock + warp * 16;
   const size_t base = (size_t)b * n * H + (size_t)h * D;
   const size_t lrow = ((size_t)b * heads + h) * n;  // this (b, h)'s row of lse and delta
-  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
   const int ak = spec.A * spec.K;
   const float sl2 = scale * kLog2e;
   const float dp_mul = scale * inv_keep;
@@ -978,7 +979,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const long long* __restrict__ seed_ptr, const int* __restrict__ table,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n, int H,
                           int heads, MaskSpec spec, float scale, float inv_keep, uint32_t threshold,
-                          int use_dropout) {
+                          int use_dropout, int b_off) {
   __shared__ __align__(128) QStages<D> sm;
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
@@ -986,7 +987,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int r0 = tr.tile * kBlock + warp * 16;  // this warp's 16 keys
   const size_t base = (size_t)b * n * H + (size_t)h * D;
   const size_t lrow = ((size_t)b * heads + h) * n;
-  const uint32_t bhs = (uint32_t)b * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
+  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
   const int ak = spec.A * spec.K;
   const float sl2 = scale * kLog2e;
   const float dp_mul = scale * inv_keep;
@@ -1083,6 +1084,7 @@ struct Args {
   float scale, inv_keep;
   uint32_t threshold;
   int use_dropout;
+  int b_off;  // the launch's first row in a global batch, added to b in the dropout hash
 };
 
 template <typename T, int D>
@@ -1091,7 +1093,7 @@ cudaError_t run_fwd(const Args& a, cudaStream_t stream) {
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const long long*>(a.seed), static_cast<T*>(a.out), static_cast<float*>(a.lse_out),
-      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout);
+      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout, a.b_off);
   return cudaGetLastError();
 }
 
@@ -1102,7 +1104,7 @@ cudaError_t run_bwd(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const long long*>(a.seed), static_cast<T*>(a.dq), static_cast<float*>(a.delta),
-      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout);
+      a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold, a.use_dropout, a.b_off);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, 0, stream>>>(
@@ -1110,7 +1112,7 @@ cudaError_t run_bwd(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<const long long*>(a.seed),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.n, a.H, a.heads, a.spec, a.scale,
-      a.inv_keep, a.threshold, a.use_dropout);
+      a.inv_keep, a.threshold, a.use_dropout, a.b_off);
   return cudaGetLastError();
 }
 
@@ -1121,7 +1123,7 @@ cudaError_t run_fwd_mma(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<const long long*>(a.seed), a.table,
       static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse_out), a.n, a.H, a.heads, a.spec,
-      a.scale, a.inv_keep, a.threshold, a.use_dropout);
+      a.scale, a.inv_keep, a.threshold, a.use_dropout, a.b_off);
   return cudaGetLastError();
 }
 
@@ -1135,7 +1137,7 @@ cudaError_t run_bwd_mma(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const long long*>(a.seed), a.table, static_cast<__nv_bfloat16*>(a.dq),
       static_cast<float*>(a.delta), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
-      a.use_dropout);
+      a.use_dropout, a.b_off);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_mma_kernel<D, kDkdvNB><<<grid, kMmaThreads, 0, stream>>>(
@@ -1144,7 +1146,7 @@ cudaError_t run_bwd_mma(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const long long*>(a.seed), a.table + 5 * tiles, static_cast<__nv_bfloat16*>(a.dk),
       static_cast<__nv_bfloat16*>(a.dv), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
-      a.use_dropout);
+      a.use_dropout, a.b_off);
   return cudaGetLastError();
 }
 
@@ -1195,15 +1197,17 @@ bool bad_shape(int B, int n, int H, int heads, int head_dim, int A, int K) {
 // of one type: float32 (is_bf16 = 0, CUDA cores) or bfloat16 (is_bf16 = 1,
 // tensor cores); lse [B, heads, n] float32; seed one int64 on the device
 // (its low 32 bits key the dropout hash; read only when dropout_p > 0 but
-// always a valid pointer). threshold = min(int((1 - dropout_p) * 2^32),
+// always a valid pointer); b_offset is added to the batch index in the hash
+// (a data-parallel rank's first row of the global batch, else 0).
+// threshold = min(int((1 - dropout_p) * 2^32),
 // 2^32 - 1). table: for bf16, the int32 [2, ceil(n / 64), 5] tile schedule
 // of ops/flash_attention.py:tile_table for this mask and n, on the device;
 // unused (may be null) for float32. Returns the cudaError_t of the launch.
 extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, const void* seed,
                                   const void* table, void* out, void* lse, int B, int n, int H,
                                   int heads, int head_dim, int A, int K, int state_index, int own,
-                                  int has_window, int window, float dropout_p, unsigned threshold,
-                                  int is_bf16, void* stream) {
+                                  int has_window, int window, int b_offset, float dropout_p,
+                                  unsigned threshold, int is_bf16, void* stream) {
   if (bad_shape(B, n, H, heads, head_dim, A, K)) return (int)cudaErrorInvalidValue;
   Args a = make_args(B, n, H, heads, head_dim, A, K, state_index, own, has_window, window, dropout_p,
                      threshold);
@@ -1211,6 +1215,7 @@ extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, c
   a.k = k;
   a.v = v;
   a.seed = seed;
+  a.b_off = b_offset;
   a.table = static_cast<const int*>(table);
   a.out = out;
   a.lse_out = lse;
@@ -1225,8 +1230,8 @@ extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, c
                                   const void* dout, const void* lse, const void* seed, const void* table,
                                   void* dq, void* dk, void* dv, void* delta, int B, int n, int H,
                                   int heads, int head_dim, int A, int K, int state_index, int own,
-                                  int has_window, int window, float dropout_p, unsigned threshold,
-                                  int is_bf16, void* stream) {
+                                  int has_window, int window, int b_offset, float dropout_p,
+                                  unsigned threshold, int is_bf16, void* stream) {
   if (bad_shape(B, n, H, heads, head_dim, A, K)) return (int)cudaErrorInvalidValue;
   Args a = make_args(B, n, H, heads, head_dim, A, K, state_index, own, has_window, window, dropout_p,
                      threshold);
@@ -1237,6 +1242,7 @@ extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, c
   a.dout = dout;
   a.lse = lse;
   a.seed = seed;
+  a.b_off = b_offset;
   a.table = static_cast<const int*>(table);
   a.dq = dq;
   a.dk = dk;

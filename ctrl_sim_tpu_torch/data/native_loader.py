@@ -90,6 +90,15 @@ def build() -> str:
     return str(target)
 
 
+def native_available() -> bool:
+    """Whether the native loader can be used here without building
+    anything new, or can be built: its library is built, or its source is
+    in the checkout and a C++ compiler is on the PATH. Builds nothing."""
+    if library_path().exists():
+        return True
+    return SOURCE.exists() and (shutil.which("g++") or shutil.which("c++")) is not None
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())

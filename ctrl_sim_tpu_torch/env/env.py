@@ -7,7 +7,12 @@ agents pinned at the (-1e6, -1e6) sentinel, collision flags recomputed after
 the dynamics, and the sticky position-goal bit carried in the state. With
 ``sim.resolve_contacts`` (the default) and physics dynamics, the Box2D-style
 contact solver (env/contacts.py) corrects FreeCar's velocities and
-re-integrates, in b2World::Step order.
+re-integrates, in b2World::Step order. ``observe`` gives the ego-centric
+visible state (the Nocturne observation API, ``env/observation.py``).
+
+Unlike the JAX ``step``, which also returns a ``StepOutput``, the port's
+``step`` returns the new state alone: its callers read the streams from
+the state.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.data.scenario import DEAD_POSITION, Scenario
 from ctrl_sim_tpu_torch.env.collision import detect_collisions
 from ctrl_sim_tpu_torch.env.contacts import resolve_contacts
+from ctrl_sim_tpu_torch.env import observation as obs
 from ctrl_sim_tpu_torch.env.dynamics import (
     BodyState,
     body_state_from_pose,
@@ -27,6 +33,8 @@ from ctrl_sim_tpu_torch.env.dynamics import (
     kinematic_bicycle_step,
 )
 from ctrl_sim_tpu_torch.env.rewards import compute_reward8
+from ctrl_sim_tpu_torch.env.traffic_lights import TrafficLights, visible_light_features
+from ctrl_sim_tpu_torch.geometry import obb_corners
 
 Tensor = torch.Tensor
 
@@ -75,6 +83,66 @@ class WaymoEnv:
             scenario.agent_valid, scenario.edge_seg_p0, scenario.edge_seg_p1,
             scenario.edge_seg_valid,
         )
+
+    def observe(
+        self,
+        scenario: Scenario,
+        state: EnvState,
+        ego_index: Tensor,  # [E] int — ego agent per scene
+        max_visible_objects: int = 16,
+        max_visible_lights: int = 20,
+        max_visible_road_points: int = 300,
+        max_visible_stop_signs: int = 4,
+        road_edge_first: bool = True,
+        view_dist: float = 80.0,
+        view_angle: float = obs.VIEW_ANGLE,
+    ) -> dict:
+        """The ego-centric partially observable observation, all four blocks
+        of the Nocturne visible state (scenario.cc:418-489 VisibleState with
+        view_field.cc's cone and occlusion), batched over scenes:
+
+          ego_state        [E, 5]
+          visible_mask     [E, A] bool (cone + occlusion)
+          visible_objects  [E, max_visible_objects, 13] nearest-first
+          road_points      [E, max_visible_road_points, 13] occlusion-aware,
+                           road edges first
+          traffic_lights   [E, max_visible_lights, 12]; zeros when the
+                           scenario has no lights
+          stop_signs       [E, max_visible_stop_signs, 3]
+        """
+        b = state.bodies
+        ego = ego_index.to(device=b.position.device, dtype=torch.long)
+        rows = torch.arange(ego.shape[0], device=ego.device)
+        ego_pos, ego_hd = b.position[rows, ego], b.heading[rows, ego]
+        cone = dict(view_dist=view_dist, view_angle=view_angle)
+        vis = obs.visible_objects_mask(b.position, b.heading, scenario.length, scenario.width, state.alive,
+                                       ego, **cone)
+        es = obs.ego_state(ego_pos, ego_hd, b.speed[rows, ego], scenario.length[rows, ego],
+                           scenario.width[rows, ego], scenario.goal_position[rows, ego])
+        fv = obs.flattened_visible_state(b.position, b.heading, b.speed, scenario.length, scenario.width, vis,
+                                         ego, max_visible_objects=max_visible_objects,
+                                         agent_types=scenario.agent_type)
+        # the road points' occluders are the VISIBLE sight-blocking objects
+        # (scenario.cc:357-359: VisibleRoadPoints runs after FilterVisibleObjects)
+        corners = obb_corners(b.position, b.heading, scenario.length, scenario.width)
+        rpf = obs.road_point_features(scenario.road_points, scenario.road_types, ego_pos, ego_hd, corners, vis,
+                                      max_visible_road_points=max_visible_road_points,
+                                      road_edge_first=road_edge_first, **cone)
+        ssf = obs.stop_sign_features(scenario.road_points, scenario.road_types, ego_pos, ego_hd,
+                                     max_visible_stop_signs=max_visible_stop_signs, **cone)
+        if scenario.tl_state is not None:
+            lights = TrafficLights(scenario.tl_position, scenario.tl_state, scenario.tl_valid)
+            tl = visible_light_features(lights, state.t, ego_pos, ego_hd, max_visible=max_visible_lights)
+        else:
+            tl = torch.zeros((ego.shape[0], max_visible_lights, 12), device=ego.device)
+        return {
+            "ego_state": es,
+            "visible_mask": vis,
+            "visible_objects": fv,
+            "road_points": rpf,
+            "traffic_lights": tl,
+            "stop_signs": ssf,
+        }
 
     def reward(self, scenario: Scenario, state: EnvState) -> tuple[Tensor, EnvState]:
         """The 8-component reward at the current state; updates the sticky

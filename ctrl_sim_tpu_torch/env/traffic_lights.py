@@ -5,17 +5,19 @@ The reference parses per-lane timestamped 9-state lights from the scenario
 JSON's ``tl_states`` (scenario.cc:222-241) and exposes the state at the
 current step. The CtRL-Sim datasets are the no-TL Waymo exports
 (``formatted_json_v2_no_tl_*``), so lights never reach its training or
-evaluation; this module keeps the simulator's surface: the dense arrays and
-the per-step state query. The visible-light features of the observation
-are not ported.
+evaluation; this module keeps the simulator's surface: the dense arrays,
+the per-step state query and the observation's visible-light features.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ctrl_sim_tpu_torch.env.observation import nearest_k, one_hot
 
 Tensor = torch.Tensor
 
@@ -90,10 +92,34 @@ def parse_tl_states(
 
 
 def state_at(lights: TrafficLights, t: int | Tensor) -> Tensor:
-    """[L] light state at step t (TrafficLight::set_current_time query).
-    Indexed as the JAX package indexes: t past the last step reads the last,
-    a negative t counts from the end (``lax.dynamic_index_in_dim``)."""
-    T = lights.state.shape[1]
+    """[..., L] light state at step t (TrafficLight::set_current_time
+    query) of lights whose fields may lead with a scene axis. Indexed as the
+    JAX package indexes: t past the last step reads the last, a negative t
+    counts from the end (``lax.dynamic_index_in_dim``)."""
+    T = lights.state.shape[-1]
     t = torch.clamp_max(torch.as_tensor(t, device=lights.state.device).long(), T - 1)
     t = torch.clamp(torch.where(t < 0, t + T, t), 0, T - 1)
-    return lights.state.index_select(1, t.reshape(1)).squeeze(1)
+    return lights.state.index_select(-1, t.reshape(1)).squeeze(-1)
+
+
+def visible_light_features(
+    lights: TrafficLights,  # fields [E, L, ...]
+    t: int | Tensor,
+    ego_position: Tensor,  # [E, 2]
+    ego_heading: Tensor,  # [E]
+    max_visible: int = 20,
+) -> Tensor:
+    """[E, max_visible, 12] nearest-first light features, [valid, dist,
+    azimuth, 9-state one-hot] (scenario.cc:184-205
+    ExtractTrafficLightFeature); the JAX function vmapped over scenes."""
+    rel = lights.position - ego_position[:, None]
+    dist = torch.sqrt((rel * rel).sum(-1))
+    azimuth = torch.atan2(rel[..., 1], rel[..., 0]) - ego_heading[:, None]
+    azimuth = torch.remainder(azimuth + math.pi, 2 * math.pi) - math.pi
+    feats = torch.cat(
+        [lights.valid[..., None].float(), dist[..., None], azimuth[..., None],
+         one_hot(state_at(lights, t), 9, torch.float32)],
+        dim=-1,
+    )
+    key = torch.where(lights.valid, dist, torch.full_like(dist, math.inf))
+    return nearest_k(feats, key, max_visible)

@@ -25,6 +25,7 @@ from torch import nn
 
 from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.models.ctg.dit import DiT
+from ctrl_sim_tpu_torch.models.draws import randint_rows, randn_rows
 
 Tensor = torch.Tensor
 GuidanceFn = Callable[[Tensor, dict], Tensor]
@@ -119,13 +120,16 @@ class GaussianDiffusion(nn.Module):
                 + _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.dim()) * noise)
 
     def loss(self, cond: dict, x_states: Tensor, x_actions: Tensor, generator: torch.Generator | None = None,
-             t: Tensor | None = None, noise: Tensor | None = None) -> tuple[Tensor, dict]:
+             t: Tensor | None = None, noise: Tensor | None = None,
+             den_reduce: Callable[[Tensor], Tensor] | None = None) -> tuple[Tensor, dict]:
         """p_losses (diffusion.py:256-285): weighted L2 of the x0 prediction,
         masked by existence (times the moving mask under
         ``model.supervise_moving``). x_states [B, N, T_out, 6] (local state
         5 + existence), x_actions [B, N, T_out, 2]. The diffusion steps
         ``t`` [B] and ``noise`` (x's shape) are drawn from ``generator``
-        unless given; dropout draws from it."""
+        unless given; dropout draws from it. ``den_reduce`` maps this
+        rank's counts (samples, elements) to the global batch's (data
+        parallelism): the losses are then this rank's shares."""
         mc = self.cfg.model
         x = torch.cat([x_states[..., :-1], x_actions], dim=-1)
         existence = x_states[..., -1]
@@ -134,9 +138,9 @@ class GaussianDiffusion(nn.Module):
         B, dev = x.shape[0], x.device
         gdev = generator.device if generator is not None else dev
         if t is None:
-            t = torch.randint(0, self.n_timesteps, (B,), generator=generator, device=gdev).to(dev)
+            t = randint_rows(0, self.n_timesteps, (B,), generator, gdev).to(dev)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=gdev).to(dev)
+            noise = randn_rows(x.shape, generator, gdev).to(dev)
         x_noisy = self.q_sample(x, t.long(), noise)
         x_recon = self.model(x_noisy, cond, t, deterministic=False, generator=generator)
 
@@ -144,10 +148,13 @@ class GaussianDiffusion(nn.Module):
         err = (x_recon.float() - x.float()) ** 2
         weighted = (err * w * existence[..., None]).mean(-1)
         denom = existence.sum(dim=(1, 2)).clamp(min=1.0)
-        weighted_loss = (weighted.sum(dim=(1, 2)) / denom).mean()
         a = self.action_dim
-        a0 = (err[:, :, 0, -a:] * existence[:, :, :1] / w[:, :, 0, -a:]).mean()
-        return weighted_loss, {"a0_loss": a0}
+        a0 = err[:, :, 0, -a:] * existence[:, :, :1] / w[:, :, 0, -a:]
+        counts = torch.tensor([float(B), float(a0.numel())], device=dev)
+        if den_reduce is not None:
+            counts = den_reduce(counts)
+        weighted_loss = (weighted.sum(dim=(1, 2)) / denom).sum() / counts[0]
+        return weighted_loss, {"a0_loss": a0.sum() / counts[1]}
 
     def sample(
         self,
@@ -172,7 +179,7 @@ class GaussianDiffusion(nn.Module):
         shape = (B, N, self.horizon, self.transition_dim)
 
         def unit_normal() -> Tensor:
-            return torch.randn(shape, generator=generator, device=gdev).to(dev)
+            return randn_rows(shape, generator, gdev).to(dev)
 
         x = 0.5 * (noise_override[0].to(dev) if noise_override is not None else unit_normal())
         stride = self.n_timesteps // mc.n_eval_diffusion_step

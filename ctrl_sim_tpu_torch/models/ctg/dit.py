@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctrl_sim_tpu_torch.config import Config
+from ctrl_sim_tpu_torch.models.draws import rand_rows
 from ctrl_sim_tpu_torch.models.layers import (
     Dense,
     Embed,
@@ -256,7 +257,7 @@ class DiTContext(NamedTuple):
 
 def goal_keep(shape: tuple, rate: float, generator: torch.Generator | None, device) -> Tensor:
     """The train-time goal dropout's keep mask: uniform > rate."""
-    return torch.rand(shape, generator=generator, device=device) > rate
+    return rand_rows(shape, generator, device) > rate
 
 
 class DiT(nn.Module):

@@ -6,6 +6,8 @@ present step's embedding. Built only under ``model.use_rtg``."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -58,16 +60,23 @@ class RTGModel(nn.Module):
         return self.predict_rtg(out[:, :, -1])
 
 
-def rtg_model_loss(cfg: Config, cond: dict, logits: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    """Masked cross entropy of the 3 components (rtg_model.py:168-194)."""
+def rtg_model_loss(cfg: Config, cond: dict, logits: Tensor,
+                   den_reduce: Callable[[Tensor], Tensor] | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """Masked cross entropy of the 3 components (rtg_model.py:168-194);
+    ``den_reduce`` maps the mask sum to the global batch's."""
     wc = cfg.waymo
     existence = cond["agent_past_states"][..., -1, -1].float()
     rp = logits.reshape(logits.shape[0], logits.shape[1], wc.rtg_discretization, 3).float()
     targets = cond["rtgs"][:, :, -1].long()
 
+    den = existence.sum()
+    if den_reduce is not None:
+        den = den_reduce(den.reshape(1))[0]
+    den = den.clamp(min=1.0)
+
     def ce(component: int) -> Tensor:
         logp = F.log_softmax(rp[..., component], dim=-1)
         nll = -torch.gather(logp, -1, targets[..., component:component + 1])[..., 0]
-        return (nll * existence).sum() / existence.sum().clamp(min=1.0)
+        return (nll * existence).sum() / den
 
     return ce(0), ce(1), ce(2)

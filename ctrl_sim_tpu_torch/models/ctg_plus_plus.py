@@ -10,7 +10,7 @@ truth (models/ctg_plus_plus.py:79-107).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -72,27 +72,35 @@ class CTGPlusPlus(nn.Module):
         return self.diffusion.sample(cond, generator, guidance_fn=guidance_fn, noise_override=noise_override)
 
     def loss(self, batch: dict, generator: torch.Generator | None = None,
-             draws: tuple[Tensor, Tensor] | None = None) -> CTGLossDict:
+             draws: tuple[Tensor, Tensor] | None = None,
+             den_reduce: Callable[[Tensor], Tensor] | None = None) -> CTGLossDict:
         """The training losses of a batch; ``draws`` = (diffusion steps [B],
-        noise) replaces those draws of ``generator``, which dropout uses."""
+        noise) replaces those draws of ``generator``, which dropout uses.
+        ``den_reduce`` (data parallelism) makes them this rank's shares of
+        the global batch's losses."""
         cond = {k: batch[k] for k in COND_KEYS}
         t, noise = draws if draws is not None else (None, None)
         dloss, info = self.diffusion.loss(cond, batch["agent_future_states"], batch["agent_future_actions"],
-                                          generator, t=t, noise=noise)
+                                          generator, t=t, noise=noise, den_reduce=den_reduce)
         rtg = [torch.zeros((), device=dloss.device)] * 3
         if self.cfg.model.use_rtg:
-            rtg = list(rtg_model_loss(self.cfg, cond, self.rtg_model(cond, deterministic=False,
-                                                                     generator=generator)))
+            logits = self.rtg_model(cond, deterministic=False, generator=generator)
+            rtg = list(rtg_model_loss(self.cfg, cond, logits, den_reduce))
         return CTGLossDict(dloss + rtg[0] + rtg[1] + rtg[2], dloss, info["a0_loss"], *rtg)
 
     def validation_mse(self, batch: dict, generator: torch.Generator | None = None,
-                       noise_override: tuple[Tensor, Tensor] | None = None) -> dict:
-        """Sampled-future state and action MSE (models/ctg_plus_plus.py:79-107)."""
+                       noise_override: tuple[Tensor, Tensor] | None = None,
+                       den_reduce: Callable[[Tensor], Tensor] | None = None) -> dict:
+        """Sampled-future state and action MSE (models/ctg_plus_plus.py:79-107);
+        with ``den_reduce``, this rank's shares of the global batch's."""
         samples = self(batch, generator, noise_override)
         tgt_k = self.cfg.waymo.k_attr - 2
         future = batch["agent_future_states"]
         exist = future[..., -1:]
-        denom = exist.sum().clamp(min=1.0)
+        denom = exist.sum()
+        if den_reduce is not None:
+            denom = den_reduce(denom.reshape(1))[0]
+        denom = denom.clamp(min=1.0)
         state_mse = (((samples[..., :tgt_k] - future[..., :tgt_k]) ** 2) * exist).sum() / (denom * tgt_k)
         action_mse = (((samples[..., tgt_k:] - batch["agent_future_actions"]) ** 2) * exist).sum() / (denom * 2)
         return {"state_mse": state_mse, "action_mse": action_mse}

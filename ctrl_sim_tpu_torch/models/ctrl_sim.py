@@ -14,7 +14,7 @@ family is a model of its own, ``models/ctg_plus_plus.py:CTGPlusPlus``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -217,13 +217,13 @@ class LossDict(NamedTuple):
     loss_state: Tensor
 
 
-def _masked_ce(logits: Tensor, targets: Tensor, mask: Tensor) -> Tensor:
-    """Cross entropy, masked mean (the reference's F.cross_entropy with
-    reduction='none', then mask-sum / mask-sum)."""
+def _masked_ce(logits: Tensor, targets: Tensor, mask: Tensor) -> tuple[Tensor, Tensor]:
+    """Cross entropy as (masked sum, mask sum): the reference's
+    F.cross_entropy with reduction='none', then mask-sum / mask-sum."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum(), mask.sum()
 
 
 def _shifted_futures(x: Tensor, T: int) -> tuple[Tensor, Tensor]:
@@ -239,7 +239,12 @@ def _shifted_futures(x: Tensor, T: int) -> tuple[Tensor, Tensor]:
     return gathered * m, in_range
 
 
-def compute_loss(cfg: Config, batch: dict, preds: DecoderOutput) -> LossDict:
+def compute_loss(cfg: Config, batch: dict, preds: DecoderOutput,
+                 den_reduce: Callable[[Tensor], Tensor] | None = None) -> LossDict:
+    """The training losses: masked means over the batch. ``den_reduce``
+    (data parallelism) maps the stacked mask sums of this rank's rows to
+    those of the global batch, so each loss is this rank's share of the
+    global one and the ranks' shares sum to it."""
     mc, wc = cfg.model, cfg.waymo
     agent_states = batch["agent_states"]  # [B, A, T, 8]
     B, A, T, _ = agent_states.shape
@@ -255,19 +260,16 @@ def compute_loss(cfg: Config, batch: dict, preds: DecoderOutput) -> LossDict:
         logits, targets, mask = preds.action_preds, batch["actions"], existence
     if mc.supervise_moving:
         mask = mask * moving[:, :, None]
-    loss_actions = mc.loss_action_coef * _masked_ce(logits, targets, mask)
+    sums = {"actions": _masked_ce(logits, targets, mask)}
 
     # RTG CE (ctrl_sim.py:88-111), masked like the actions; logits bins-major
-    loss_rtg_goal = loss_rtg_veh = loss_rtg_road = zero
     if mc.predict_rtg and preds.rtg_preds is not None:
         rp = preds.rtg_preds.reshape(B, A, T, wc.rtg_discretization, 3)
         rtgs = batch["rtgs"]
-        loss_rtg_goal = _masked_ce(rp[..., 0], rtgs[..., 0], mask)
-        loss_rtg_veh = _masked_ce(rp[..., 1], rtgs[..., 1], mask)
-        loss_rtg_road = _masked_ce(rp[..., 2], rtgs[..., 2], mask)
+        for i, name in enumerate(("rtg_goal", "rtg_veh", "rtg_road")):
+            sums[name] = _masked_ce(rp[..., i], rtgs[..., i], mask)
 
     # auxiliary future-state MSE (ctrl_sim.py:114-187)
-    loss_state = zero
     if mc.predict_future_states and preds.state_preds is not None:
         ex = existence * moving[:, :, None] if mc.supervise_moving else existence
         if mc.local_frame_predictions:
@@ -285,7 +287,16 @@ def compute_loss(cfg: Config, batch: dict, preds: DecoderOutput) -> LossDict:
         ex_fut = ex_fut[..., 0] * in_range[None, None]
         sp = preds.state_preds.reshape(B, A, T, T, 2).float()
         err = ((sp - fut.float()) ** 2).sum(-1)
-        loss_state = (err * ex_fut).sum() / (100.0 * (ex_fut.sum() * 2.0).clamp(min=1.0))
+        sums["state"] = ((err * ex_fut).sum(), ex_fut.sum() * 2.0)
+
+    dens = torch.stack([den for _, den in sums.values()])
+    if den_reduce is not None:
+        dens = den_reduce(dens)
+    den = dict(zip(sums, dens.clamp(min=1.0)))
+    mean = {name: num / den[name] for name, (num, _) in sums.items()}
+    loss_actions = mc.loss_action_coef * mean["actions"]
+    loss_rtg_goal, loss_rtg_veh, loss_rtg_road = (mean.get(n, zero) for n in ("rtg_goal", "rtg_veh", "rtg_road"))
+    loss_state = sums["state"][0] / (100.0 * den["state"]) if "state" in sums else zero
 
     total = loss_actions
     if mc.predict_rtg:

@@ -27,6 +27,7 @@ from ctrl_sim_tpu_torch.models.layers import (
     MLPLayer,
     TransformerEncoderLayer,
 )
+from ctrl_sim_tpu_torch.models.draws import rand_rows
 from ctrl_sim_tpu_torch.models.map_encoder import MapEncoder
 
 Tensor = torch.Tensor
@@ -151,7 +152,7 @@ class Encoder(nn.Module):
 
         goal_keep = None
         if not deterministic and mc.goal_dropout > 0.0:
-            keep = torch.rand((B, A), generator=generator, device=dev) > mc.goal_dropout
+            keep = rand_rows((B, A), generator, dev) > mc.goal_dropout
             goal_keep = keep[:, None, :].expand(B, T, A).reshape(B, T * A, 1)
 
         state_emb = self.embed_state_tokens(tflat(states12), tflat(goals), t_ids, a_ids, ex, goal_keep)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ctrl_sim_tpu_torch.models.draws import plain, rand_rows, row_offset
 from ctrl_sim_tpu_torch.ops.attention import cached_decode_attention, cached_decode_attention_q8, quantize_rows
 from ctrl_sim_tpu_torch.ops.flash_attention import MaskSpec, flash_mha
 
@@ -35,7 +36,7 @@ def dropout(x: Tensor, rate: float, generator: torch.Generator | None) -> Tensor
     generator, hence the keep mask drawn here."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = rand_rows(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -125,8 +126,9 @@ class MultiHeadAttention(nn.Module):
             rate = 0.0 if deterministic else self.dropout
             seed = None
             if rate > 0.0:
-                seed = torch.randint(0, 2**32, (1,), generator=generator, device=q.device)
-            out = flash_mha(q, k, v, mask_spec, self.num_heads, rate, seed).to(self.compute_dtype)
+                seed = torch.randint(0, 2**32, (1,), generator=plain(generator), device=q.device)
+            out = flash_mha(q, k, v, mask_spec, self.num_heads, rate, seed,
+                            batch_offset=row_offset(generator, q.shape[0])).to(self.compute_dtype)
         else:
             out = self.attend_impl(q, k, v, mask, key_padding_mask, deterministic, generator)
         return self.out_proj(out)

@@ -163,10 +163,14 @@ def flash_mha_reference(
     num_heads: int,
     dropout_p: float = 0.0,
     seed=None,  # int or int64 tensor [1]; only read when dropout_p > 0
+    batch_offset: int = 0,  # added to the batch index in the dropout hash
 ) -> tuple[Tensor, Tensor]:
     """The plain PyTorch version of kernels K3/K4: dense masked attention in
     fp32 einsums. Returns (out [B, T, D] in q's dtype, lse [B, heads, T]
-    fp32); differentiable by autograd, which gives K4's gradients."""
+    fp32); differentiable by autograd, which gives K4's gradients. Row b's
+    dropout mask is that of batch index ``batch_offset + b``: a rank
+    holding rows [o, o + B) of a global batch passes o, and its masks are
+    those of the single-process launch."""
     B, T, D = q.shape
     d = D // num_heads
     idx = torch.arange(T, device=q.device)
@@ -183,7 +187,7 @@ def flash_mha_reference(
         seed = 0 if seed is None else seed
         heads = torch.arange(num_heads, device=q.device)[:, None, None]
         keep = torch.stack([
-            dropout_keep_reference(seed, b, heads, idx[:, None], idx[None, :], 1.0 - dropout_p)
+            dropout_keep_reference(seed, batch_offset + b, heads, idx[:, None], idx[None, :], 1.0 - dropout_p)
             for b in range(B)
         ])
         p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
@@ -217,8 +221,8 @@ def _seed_tensor(seed, device: torch.device) -> Tensor:
 def _kernels():
     lib = build.load("flash_attention.cu")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # B, T, H, heads, head_dim, A, K, state_index, own, has_window, window
-    shape = [i32] * 11
+    # B, T, H, heads, head_dim, A, K, state_index, own, has_window, window, batch offset
+    shape = [i32] * 12
     # dropout_p, threshold, is_bf16, stream
     tail = [ctypes.c_float, ctypes.c_uint, i32, ptr]
     fwd = lib.ctrl_sim_flash_fwd
@@ -230,14 +234,14 @@ def _kernels():
     return fwd, bwd
 
 
-def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, d: int, dropout_p: float) -> list:
+def _launch_args(q: Tensor, spec: MaskSpec, num_heads: int, d: int, dropout_p: float, batch_offset: int) -> list:
     """The kernels' scalar arguments for the head-padded q [B, T, D] whose
     heads hold d true columns each."""
     B, T, D = q.shape
     window = spec.window
     return [
         B, T, D, num_heads, d, spec.num_agents, spec.num_types, spec.state_index,
-        int(spec.attend_own_return_action), int(window is not None), int(window or 0),
+        int(spec.attend_own_return_action), int(window is not None), int(window or 0), int(batch_offset),
         float(dropout_p), keep_threshold(1.0 - dropout_p), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     ]
@@ -263,14 +267,15 @@ def _require_cuda(*tensors: Tensor) -> None:
 
 def flash_mha_fwd(
     q: Tensor, k: Tensor, v: Tensor, spec: MaskSpec, num_heads: int,
-    dropout_p: float = 0.0, seed=None,
+    dropout_p: float = 0.0, seed=None, batch_offset: int = 0,
 ) -> tuple[Tensor, Tensor]:
     """Kernel K3: (out [B, T, D], lse [B, heads, T] fp32). CUDA tensors go
     through the hand-written kernel (every launch adds one to
-    ``flash_mha_fwd.launches``); CPU tensors through the plain version."""
+    ``flash_mha_fwd.launches``); CPU tensors through the plain version.
+    ``batch_offset`` is added to the batch index in the dropout hash."""
     _check(q, k, v, num_heads)
     if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed)
+        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)
     _require_cuda(q, k, v)
     seed_t = _seed_tensor(seed, q.device)
     B, T, D = q.shape
@@ -282,7 +287,7 @@ def flash_mha_fwd(
     fwd, _ = _kernels()
     with torch.cuda.device(q.device):
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec),
-                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p))
+                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p, batch_offset))
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError_t {err}")
     flash_mha_fwd.launches += 1
@@ -294,7 +299,7 @@ flash_mha_fwd.launches = 0
 
 def flash_mha_bwd(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor, lse: Tensor,
-    spec: MaskSpec, num_heads: int, dropout_p: float = 0.0, seed=None,
+    spec: MaskSpec, num_heads: int, dropout_p: float = 0.0, seed=None, batch_offset: int = 0,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Kernel K4: (dq, dk, dv) of ``out = flash_mha(q, k, v)`` for the
     output gradient ``dout``, recomputing the weights from ``lse``. CUDA
@@ -305,7 +310,7 @@ def flash_mha_bwd(
     if q.device.type == "cpu":
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            o, _ = flash_mha_reference(*leaves, spec, num_heads, dropout_p, seed)
+            o, _ = flash_mha_reference(*leaves, spec, num_heads, dropout_p, seed, batch_offset)
             return torch.autograd.grad(o, leaves, dout.to(o.dtype))
     _require_cuda(q, k, v, out, dout, lse)
     if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
@@ -321,7 +326,7 @@ def flash_mha_bwd(
     with torch.cuda.device(q.device):
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                   lse.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p))
+                  dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p, batch_offset))
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError_t {err}")
     flash_mha_bwd.launches += 1
@@ -335,21 +340,21 @@ class _FlashMHA(torch.autograd.Function):
     """K3 forward, K4 backward (the JAX custom VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, spec, num_heads, dropout_p):
-        out, lse = flash_mha_fwd(q, k, v, spec, num_heads, dropout_p, seed)
+    def forward(ctx, q, k, v, seed, spec, num_heads, dropout_p, batch_offset):
+        out, lse = flash_mha_fwd(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)
         ctx.save_for_backward(q, k, v, out, lse, seed)
-        ctx.args = (spec, num_heads, dropout_p)
+        ctx.args = (spec, num_heads, dropout_p, batch_offset)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, out, lse, seed = ctx.saved_tensors
-        spec, num_heads, dropout_p = ctx.args
+        spec, num_heads, dropout_p, batch_offset = ctx.args
         grad = grad.to(q.dtype).contiguous()
         if grad.data_ptr() % 16:  # a view at an odd offset: the kernels load 16 bytes at a time
             grad = grad.clone()
-        dq, dk, dv = flash_mha_bwd(q, k, v, out, grad, lse, spec, num_heads, dropout_p, seed)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = flash_mha_bwd(q, k, v, out, grad, lse, spec, num_heads, dropout_p, seed, batch_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_mha(
@@ -360,14 +365,15 @@ def flash_mha(
     num_heads: int,
     dropout_p: float = 0.0,
     seed=None,  # int or int64 tensor [1]; the same seed gives the same keep mask
+    batch_offset: int = 0,  # added to the batch index in the dropout hash
 ) -> Tensor:
     """Multi-head attention under the multi-agent causal mask, O(T) memory
     on the card. Differentiable: the forward is K3 and the backward K4 on
     CUDA tensors; on CPU tensors both are the plain version."""
     _check(q, k, v, num_heads)
     if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed)[0]
+        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)[0]
     return _FlashMHA.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), _seed_tensor(seed, q.device),
-        spec, num_heads, float(dropout_p),
+        q.contiguous(), k.contiguous(), v.contiguous(), _seed_tensor(seed, q.device), spec, num_heads,
+        float(dropout_p), int(batch_offset),
     )

@@ -13,6 +13,9 @@ the port's ``state_dict``:
   ``encoder_layers.i``, and inside an ``MLPLayer`` ``Dense_0`` / ``LayerNorm_0``
   / ``Dense_1`` -> ``fc1`` / ``norm`` / ``fc2``; other auto-named flax
   modules (CTG++'s ``SingleInputEmbedding``) keep their names.
+
+``flax_path`` is the inverse of that renaming for one parameter of a port
+model: its path in the JAX model's params.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ctrl_sim_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from ctrl_sim_tpu_torch.models.layers import Dense, Embed, LayerNorm, MLPLayer
 
 _RENAMES = {"Dense_0": "fc1", "LayerNorm_0": "norm", "Dense_1": "fc2"}
+_INVERSE = {v: k for k, v in _RENAMES.items()}
+_LAYER_LISTS = {"layers": "decoder_layer", "encoder_layers": "encoder_layer"}
 
 
 def _flatten(tree, prefix=()):
@@ -64,6 +69,31 @@ def from_flax_params(tree: dict) -> dict[str, torch.Tensor]:
             names.append(leaf)
         out[".".join(names)] = torch.tensor(arr)
     return out
+
+
+def flax_path(model: nn.Module, name: str) -> tuple[str, ...]:
+    """The path of the port's parameter ``name`` (a ``named_parameters``
+    name of ``model``) in the JAX model's params, ``("params", ...)``: the
+    inverse of ``from_flax_params``'s renaming."""
+    *mods, leaf = name.split(".")
+    path, module, i = ["params"], model, 0
+    while i < len(mods):
+        part = mods[i]
+        if part in _LAYER_LISTS and i + 1 < len(mods):
+            module = module.get_submodule(f"{part}.{mods[i + 1]}")
+            path.append(f"{_LAYER_LISTS[part]}_{mods[i + 1]}")
+            i += 2
+            continue
+        parent, module = module, module.get_submodule(part)
+        path.append(_INVERSE[part] if isinstance(parent, MLPLayer) else part)
+        i += 1
+    if leaf == "weight" and isinstance(module, Dense):
+        leaf = "kernel"
+    elif leaf == "weight" and isinstance(module, LayerNorm):
+        leaf = "scale"
+    elif leaf == "weight" and isinstance(module, Embed):
+        leaf = "embedding"
+    return tuple(path) + (leaf,)
 
 
 def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator) -> None:

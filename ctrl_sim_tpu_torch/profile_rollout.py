@@ -12,15 +12,19 @@ cache, kernel K2, and the bf16 cache with contacts off; DT, IL and
 trajeglish, DT with the int8 cache, and the default family's sequential
 3-pass decode. The exact case: one 32-scene chunk of the exact-mode
 evaluation (``PolicyEvaluator`` in multi_agent mode), whose decodes are
-full forwards through kernel K3. The profiler slows the host, so only its
-device times are read; the busy share is taken against the unprofiled
-runs' median wall time.
+full forwards through kernel K3. The observe case: ``observation_replay``
+(``env/gym.py``) over the same 32 scenes, 90 steps, contacts on, which
+reaches no kernel; its line also gives the seconds of ``WaymoEnv.observe``
+in one more run, each call synchronized (``utils/profiling.StepMeter``).
+The profiler slows the host, so only its device times are read; the busy
+share is taken against the unprofiled runs' median wall time.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -38,6 +42,8 @@ def _device_ms_by_kernel(prof) -> dict[str, float]:
 def _cases(seed: int):
     """(name, rollout, attention kernel name) of every case: each rollout
     is a function that runs one chunk and returns its output."""
+    from ctrl_sim_tpu_torch.data import stack_scenarios, to_torch
+    from ctrl_sim_tpu_torch.env.gym import observation_replay
     from ctrl_sim_tpu_torch.evals.evaluator import PolicyEvaluator
     from ctrl_sim_tpu_torch.rollout.setup import exact_eval_setup, full_width_rollout
     from ctrl_sim_tpu_torch.rollout.streaming import run_streaming
@@ -52,6 +58,31 @@ def _cases(seed: int):
     ev = PolicyEvaluator(cfg, model)
     (chunk,) = ev.chunks(scenes)
     yield "exact", lambda: ev.rollout(*chunk, torch.Generator(device="cuda").manual_seed(seed)), "flash_fwd"
+    del ev, model, chunk
+    sc = to_torch(stack_scenarios(scenes, cfg), "cuda")
+    ego = torch.zeros(sc.traj_position.shape[0], dtype=torch.long, device="cuda")
+    yield "observe", lambda: SimpleNamespace(position=observation_replay(cfg, sc, ego)[1]["position"]), None
+
+
+def _observe_seconds(rollout) -> float:
+    """Seconds of ``WaymoEnv.observe`` in one rollout, each call timed up
+    to its device's completion."""
+    from ctrl_sim_tpu_torch.env.env import WaymoEnv
+    from ctrl_sim_tpu_torch.utils import StepMeter
+
+    meter, orig = StepMeter(), WaymoEnv.observe
+
+    def observe(env, scenario, state, *args, **kwargs):
+        torch.cuda.synchronize()
+        with meter.phase("observe", materialize=state.bodies.position):  # waits for the device at the end
+            return orig(env, scenario, state, *args, **kwargs)
+
+    WaymoEnv.observe = observe
+    try:
+        rollout()
+    finally:
+        WaymoEnv.observe = orig
+    return meter.totals["observe"]
 
 
 def profile_rollout(seed: int = 0) -> None:
@@ -77,10 +108,14 @@ def profile_rollout(seed: int = 0) -> None:
         if busy_ms <= 0:
             raise RuntimeError("the profiler recorded no device time")
         wall_ms = statistics.median(walls) * 1e3
-        attn_ms = sum(v for k, v in by_name.items() if kernel_key in k)
+        if kernel_key is None:
+            share = f"WaymoEnv.observe {_observe_seconds(rollout):.3f} s of one more run"
+        else:
+            attn_ms = sum(v for k, v in by_name.items() if kernel_key in k)
+            share = f"{kernel_key} kernels {attn_ms:.1f} ms = {100 * attn_ms / busy_ms:.1f}% of device time"
         print(f"[profile-rollout] {name}: wall {' '.join(f'{w:.3f}' for w in walls)} s (median {wall_ms:.1f} ms); "
-              f"device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of the median wall; {kernel_key} "
-              f"kernels {attn_ms:.1f} ms = {100 * attn_ms / busy_ms:.1f}% of device time", flush=True)
+              f"device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of the median wall; {share}",
+              flush=True)
         for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {kernel[:110]}")
 

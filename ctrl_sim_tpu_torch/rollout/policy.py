@@ -23,6 +23,19 @@ def sample_categorical(generator: torch.Generator, logits: Tensor) -> Tensor:
     return torch.argmax(logits.float() - torch.log(noise), dim=-1)
 
 
+def categorical_invcdf(generator: torch.Generator, logits: Tensor) -> Tensor:
+    """One draw per row over the last axis by the inverse CDF: one uniform u
+    per row and the count of cumulative weights below u times their total,
+    P(i) = softmax(logits)_i (the JAX package's ``categorical_invcdf``,
+    kept there for CPU tooling and as the samplers' distributional test
+    oracle). A row with every logit at the same floor (fully masked)
+    samples uniformly."""
+    m = logits.float().amax(dim=-1, keepdim=True)
+    cum = torch.cumsum(torch.exp2((logits.float() - m) * 1.4426950408889634), dim=-1)
+    u = torch.rand(logits.shape[:-1] + (1,), generator=generator, device=logits.device)
+    return (cum < u * cum[..., -1:]).sum(dim=-1)
+
+
 def sample_tilted_rtgs(generator: torch.Generator, rtg_logits: Tensor, tilt_logits: Tensor) -> Tensor:
     """Add tilt logits per component and sample one bin per component
     (policy.py:117-129). rtg_logits [..., num_bins, 3], tilt broadcastable;

@@ -32,8 +32,21 @@ step=... val_loss=...`` (CTG++: ``state_mse=... action_mse=...`` of
 sampled futures, and ``state_mse`` selects), logged, and saved with that
 step's checkpoint, and the checkpoint with the lowest ``val_loss`` is kept
 beside the last ``train.keep_last_n``. ``--native_loader`` reads the JSONs
-with the C++ loader. Not ported yet, and refused: ``--distributed`` (the
-multi-device learner).
+with the C++ loader.
+
+``--distributed`` trains data parallel, one process per card, started by
+torchrun (the JAX package runs one process over all local chips):
+
+  torchrun --nproc_per_node 8 -m ctrl_sim_tpu_torch.train --distributed --synthetic 64
+
+Each rank joins the process group of torchrun's environment (NCCL; gloo
+with ``--device cpu``) on ``cuda:LOCAL_RANK``, the global batch is rounded
+down to a multiple of the world size, every rank samples the same global
+batch and draws from the same generators, and the trainer splits each
+microbatch over the ranks and all-reduces the losses' mask sums and the
+gradients (``training/trainer.py``). Rank 0 alone prints, logs and writes
+checkpoints, with a barrier around each save; every rank restores, and the
+validation losses are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from ctrl_sim_tpu_torch.config import Config, _set_dotted, preset
 from ctrl_sim_tpu_torch.data.store import ScenarioStore
 from ctrl_sim_tpu_torch.data.synthetic import synthetic_scenario
 from ctrl_sim_tpu_torch.device import resolve_device
+from ctrl_sim_tpu_torch.parallel import MeshSpec, init_distributed, make_mesh
 from ctrl_sim_tpu_torch.training import trainer_for
 from ctrl_sim_tpu_torch.training.checkpoint import CheckpointManager
 from ctrl_sim_tpu_torch.training.trainer import (
@@ -105,13 +119,17 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--val_every", type=int, default=None)
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-device training (not ported yet)")
+                   help="data-parallel training over torchrun's processes, one per card")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
     if args.distributed:
-        raise NotImplementedError("--distributed: the multi-device learner is not ported yet")
-    device = resolve_device(args.device)
+        device = init_distributed(device=args.device)
+        mesh = make_mesh()
+    else:
+        device, mesh = resolve_device(args.device), MeshSpec()
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
 
     cfg = preset(args.preset)
     overrides = parse_overrides(args.override)
@@ -121,28 +139,39 @@ def main(argv: list[str] | None = None) -> None:
         cfg = _set_dotted(cfg, key, value)
 
     batch_size = cfg.train.global_batch_size
-    print(f"[train] devices=1 batch={batch_size} preset={args.preset}")
+    if batch_size % mesh.world:
+        batch_size = max(mesh.world, batch_size - batch_size % mesh.world)
+        say(f"[train] rounding global batch to {batch_size} for {mesh.world} devices")
+    say(f"[train] devices={mesh.world} batch={batch_size} preset={args.preset}")
     store = build_store(cfg, args, device)
-    print(f"[train] store: {store.num_scenes} scenes")
+    say(f"[train] store: {store.num_scenes} scenes")
     val_store = None
     if args.val_dir:
         val_store = ScenarioStore.from_json_dir(cfg, args.val_dir, limit=args.limit_files, device=device,
                                                 native=args.native_loader)
-        print(f"[train] validation store: {val_store.num_scenes} scenes")
+        say(f"[train] validation store: {val_store.num_scenes} scenes")
 
     seed = cfg.train.seed
     is_ctg = cfg.model.ctg_plus_plus
     family = "ctg_plus_plus" if is_ctg else "ctrl_sim"
-    trainer = trainer_for(cfg, device=device)
+    trainer = trainer_for(cfg, device=device, mesh=mesh)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
 
     save_dir = args.save_dir or cfg.train.save_dir
-    mgr = CheckpointManager(cfg, save_dir)
+    mgr = CheckpointManager(cfg, save_dir) if lead else None  # rank 0 writes config.json first
+    mesh.barrier()
+    mgr = mgr or CheckpointManager(cfg, save_dir)
     if mgr.latest_step() is not None:
-        print(f"[train] resuming from step {mgr.latest_step()}")
+        say(f"[train] resuming from step {mgr.latest_step()}")
         state = mgr.restore(state)
 
-    logger = MetricsLogger(save_dir, track=cfg.train.track)
+    def save(step: int, **kw) -> None:
+        mesh.barrier()
+        if lead:
+            mgr.save(step, state, **kw)
+        mesh.barrier()
+
+    logger = MetricsLogger(save_dir, track=cfg.train.track) if lead else None
     train_step = trainer.make_train_step()
     eval_step = trainer.make_eval_step()
     grad_norm_fn = trainer.make_grad_norm_fn() if cfg.train.log_grad_norms and not is_ctg else None
@@ -162,9 +191,10 @@ def main(argv: list[str] | None = None) -> None:
             if grad_norm_fn is not None:
                 gen = step_generator(seed, step, GRAD_NORM_STREAM, device)
                 row.update({k: float(v) for k, v in grad_norm_fn(state, batch, gen).items()})
-            logger.log(step, row)
+            if lead:
+                logger.log(step, row)
             if is_ctg:
-                print(
+                say(
                     f"[train] step={step} loss={total:.4f} "
                     f"diffusion={float(losses.diffusion_loss):.4f} "
                     f"a0={float(losses.a0_loss):.4f} "
@@ -174,7 +204,7 @@ def main(argv: list[str] | None = None) -> None:
                     f"steps/s={args.log_every / dt:.2f}"
                 )
             else:
-                print(
+                say(
                     f"[train] step={step} loss={total:.4f} "
                     f"actions={float(losses.loss_actions):.4f} "
                     f"rtg={float(losses.loss_rtg_goal):.4f}/"
@@ -190,18 +220,22 @@ def main(argv: list[str] | None = None) -> None:
                 # checkpoint selection by state_mse (the reference train.py:38-46 monitor)
                 vm = eval_step(state, vb, val_gen)
                 val_metric = float(vm["state_mse"])
-                print(f"[val] step={step} state_mse={val_metric:.4f} action_mse={float(vm['action_mse']):.4f}")
+                say(f"[val] step={step} state_mse={val_metric:.4f} action_mse={float(vm['action_mse']):.4f}")
             else:
                 val_metric = float(eval_step(state, vb).total)
-                print(f"[val] step={step} val_loss={val_metric:.4f}")
-            logger.log(step, {"val_loss": val_metric})
-            mgr.save(step, state, metrics={"val_loss": val_metric})
+                say(f"[val] step={step} val_loss={val_metric:.4f}")
+            if lead:
+                logger.log(step, {"val_loss": val_metric})
+            save(step, metrics={"val_loss": val_metric})
         elif step % args.ckpt_every == 0:
-            mgr.save(step, state)
-    mgr.save(step, state)
+            save(step)
+    save(step)
     mgr.wait()
-    logger.close()
-    print(f"[train] done at step {step}; checkpoints in {save_dir}")
+    if lead:
+        logger.close()
+    say(f"[train] done at step {step}; checkpoints in {save_dir}")
+    if args.distributed:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,8 +17,17 @@ trainer does:
 
 The model, the optimizer and the step count live in a ``TrainState`` that
 the train step updates in place and returns. ``CTGTrainer`` trains the CTG++
-model with the same recipe. One device; the multi-device learner
-(``parallel/mesh.py``) is not ported.
+model with the same recipe.
+
+With a ``mesh`` of more than one rank (``parallel/mesh.py``, one process per
+card), a step is the single-process step on the global batch, which every
+rank holds: microbatch i is split over the data ranks (rank r takes its
+part of global microbatch i, as GSPMD splits it), each loss's mask sums are
+all-reduced before the backward so that each rank's loss is its share of
+the global masked mean, every random draw is made at the global
+microbatch's shape and cut to the rank's rows (``models/draws.py``; the flash
+kernels key dropout on the global row), and the gradients are all-reduced
+before the global-norm clip. The logged losses are the global ones.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ import torch
 from ctrl_sim_tpu_torch.config import Config
 from ctrl_sim_tpu_torch.device import resolve_device
 from ctrl_sim_tpu_torch.models.ctrl_sim import CtRLSim, LossDict, compute_loss
+from ctrl_sim_tpu_torch.models.draws import RowGenerator
 from ctrl_sim_tpu_torch.models.layers import Dense
+from ctrl_sim_tpu_torch.parallel.mesh import MeshSpec
 from ctrl_sim_tpu_torch.params import init_params
 from ctrl_sim_tpu_torch.utils.logging import grad_norms
 
@@ -113,35 +124,84 @@ def step_generator(seed: int, step: int, stream: int, device: torch.device | str
 
 class Trainer:
     """Builds the train, eval and grad-norm steps of one model on one
-    device (the card unless the caller passes ``device="cpu"``). Dropout
-    and the flash seeds draw from the ``torch.Generator`` each step is
-    given."""
+    device (the card unless the caller passes ``device="cpu"``), data
+    parallel over ``mesh`` when it has more than one rank. Dropout and the
+    flash seeds draw from the ``torch.Generator`` each step is given, the
+    same on every rank."""
 
-    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+    def __init__(self, cfg: Config, device: torch.device | str | None = None, mesh: MeshSpec | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else MeshSpec()
 
     def new_model(self) -> torch.nn.Module:
         """The trainer's model, uninitialized, on its device."""
         return CtRLSim(self.cfg, device=self.device)
 
     def init_state(self, generator: torch.Generator) -> TrainState:
-        """A freshly initialized model (``params.init_params``) and its
-        optimizer."""
+        """A freshly initialized model (``params.init_params``), the same on
+        every rank, and its optimizer."""
         model = self.new_model()
         init_params(model, generator)
-        return self.state_from_model(model)
+        return self.state_from_model(self.mesh.replicate(model))
 
     def microbatch_losses(self, model: torch.nn.Module, micro: dict, generator: torch.Generator | None,
-                          draws=None):
+                          draws=None, den_reduce=None):
         """The training losses of one microbatch (dropout on). Only the
         diffusion loss takes replayed draws (``CTGTrainer``)."""
         if draws is not None:
             raise ValueError("this trainer's loss draws from its generator alone: draws are CTGTrainer's")
-        return compute_loss(self.cfg, micro, model(micro, deterministic=False, generator=generator))
+        return compute_loss(self.cfg, micro, model(micro, deterministic=False, generator=generator), den_reduce)
 
     def state_from_model(self, model: CtRLSim, step: int = 0) -> TrainState:
         return TrainState(step=step, model=model, optimizer=make_optimizer(self.cfg, model))
+
+    # ------------------------------------------------------------------
+    # data parallelism: every rank holds the global batch
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh.world > 1
+
+    def _local(self, batch, generator=None, draws=None):
+        """This rank's rows of a global (micro)batch, the generator its
+        forward draws from (a ``RowGenerator`` of its rows; None stands for
+        the device's default generator), its draws and the denominator
+        reduction; the arguments themselves on one rank."""
+        if not self._sharded:
+            return batch, generator, draws, None
+        n = len(next(iter(batch.values())))
+        rows = self.mesh.rows(n)
+        if generator is None and self.device.type == "cpu":
+            generator = torch.default_generator
+        elif generator is None:
+            generator = torch.cuda.default_generators[torch.cuda.current_device() if self.device.index is None
+                                                      else self.device.index]
+        draws = None if draws is None else self.mesh.shard_batch(draws)
+        return (self.mesh.shard_batch(batch), RowGenerator(generator, rows.start, rows.stop - rows.start, n), draws,
+                self._all_reduced)
+
+    def _all_reduced(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(x.detach().clone())
+
+    def _global(self, losses):
+        """The ranks' shares of a loss tuple (or dict), summed: the global losses."""
+        if not self._sharded:
+            return losses
+        if isinstance(losses, dict):
+            return dict(zip(losses, self._all_reduced(torch.stack(list(losses.values())))))
+        return type(losses)(*self._all_reduced(torch.stack(list(losses))))
+
+    def _reduce_grads(self, grads: list[torch.Tensor]) -> None:
+        """The gradients summed over the ranks, in place (one flat buffer)."""
+        if not self._sharded:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        self.mesh.all_reduce(flat)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+    # ------------------------------------------------------------------
 
     def make_train_step(self):
         cfg = self.cfg
@@ -149,15 +209,16 @@ class Trainer:
         schedule = lr_schedule(cfg)
 
         def train_step(state: TrainState, batch: dict, generator: torch.Generator | None, draws=None):
-            """One optimizer update from the batch, split into ``accum``
-            microbatches whose gradients are averaged; returns the state
-            and the losses of the last microbatch. ``draws[i]``, where
+            """One optimizer update from the (global) batch, split into
+            ``accum`` microbatches whose gradients are averaged; returns the
+            state and the losses of the last microbatch. ``draws[i]``, where
             given, are microbatch i's draws (``CTGTrainer``)."""
             model, opt = state.model, state.optimizer
             model.train()
             opt.zero_grad(set_to_none=True)
             for i, micro in enumerate(_split(batch, accum)):
-                losses = self.microbatch_losses(model, micro, generator, None if draws is None else draws[i])
+                local, gen, d, den_reduce = self._local(micro, generator, None if draws is None else draws[i])
+                losses = self.microbatch_losses(model, local, gen, d, den_reduce)
                 (losses.total / accum).backward()
             # a parameter the family's layout leaves unused (IL's and
             # trajeglish's RTG embeddings) gets a zero gradient, so AdamW
@@ -165,12 +226,14 @@ class Trainer:
             for p in model.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            state.grad_norm = clip_by_global_norm([p.grad for p in model.parameters()], cfg.train.gradient_clip_val)
+            grads = [p.grad for p in model.parameters()]
+            self._reduce_grads(grads)
+            state.grad_norm = clip_by_global_norm(grads, cfg.train.gradient_clip_val)
             for group in opt.param_groups:
                 group["lr"] = schedule(state.step)
             opt.step()
             state.step += 1
-            return state, type(losses)(*(x.detach() for x in losses))
+            return state, self._global(type(losses)(*(x.detach() for x in losses)))
 
         return train_step
 
@@ -182,9 +245,12 @@ class Trainer:
         def fn(state: TrainState, batch: dict, generator: torch.Generator | None) -> dict:
             model = state.model
             named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-            loss = self.microbatch_losses(model, batch, generator).total
+            local, gen, _, den_reduce = self._local(batch, generator)
+            loss = self.microbatch_losses(model, local, gen, den_reduce=den_reduce).total
             grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-            return grad_norms({n: g for (n, _), g in zip(named, grads) if g is not None})
+            kept = [(n, g) for (n, _), g in zip(named, grads) if g is not None]
+            self._reduce_grads([g for _, g in kept])
+            return grad_norms(dict(kept))
 
         return fn
 
@@ -194,7 +260,8 @@ class Trainer:
         @torch.no_grad()
         def eval_step(state: TrainState, batch: dict) -> LossDict:
             state.model.eval()
-            return compute_loss(cfg, batch, state.model(batch, deterministic=True))
+            local, _, _, den_reduce = self._local(batch)
+            return self._global(compute_loss(cfg, local, state.model(local, deterministic=True), den_reduce))
 
         return eval_step
 
@@ -215,8 +282,8 @@ class CTGTrainer(Trainer):
 
         return CTGPlusPlus(self.cfg, device=self.device)
 
-    def microbatch_losses(self, model, micro, generator, draws=None):
-        return model.loss(micro, generator, draws)
+    def microbatch_losses(self, model, micro, generator, draws=None, den_reduce=None):
+        return model.loss(micro, generator, draws, den_reduce)
 
     def make_eval_step(self):
         """Validation: the sampled futures' state and action MSE, the
@@ -226,11 +293,16 @@ class CTGTrainer(Trainer):
         def eval_step(state: TrainState, batch: dict, generator: torch.Generator | None,
                       noise_override=None) -> dict:
             state.model.eval()
-            return state.model.validation_mse(batch, generator, noise_override)
+            local, gen, _, den_reduce = self._local(batch, generator)
+            noise = noise_override
+            if noise is not None and self._sharded:  # (x0 noise [B, ...], step noises [n_eval, B, ...])
+                rows = self.mesh.rows(noise[0].shape[0])
+                noise = (noise[0][rows], noise[1][:, rows])
+            return self._global(state.model.validation_mse(local, gen, noise, den_reduce))
 
         return eval_step
 
 
-def trainer_for(cfg: Config, device: torch.device | str | None = None) -> Trainer:
+def trainer_for(cfg: Config, device: torch.device | str | None = None, mesh: MeshSpec | None = None) -> Trainer:
     """The trainer of the config's model family."""
-    return (CTGTrainer if cfg.model.ctg_plus_plus else Trainer)(cfg, device=device)
+    return (CTGTrainer if cfg.model.ctg_plus_plus else Trainer)(cfg, device=device, mesh=mesh)

@@ -1,6 +1,7 @@
 """The port imports only what the machine with the card has: the stdlib,
-numpy and torch (triton only inside a function), never JAX and nothing of
-the JAX package ``ctrl_sim_tpu``."""
+numpy and torch (triton, and matplotlib for ``viz.py``'s drawing, only
+inside a function), never JAX and nothing of the JAX package
+``ctrl_sim_tpu``."""
 
 import ast
 import subprocess
@@ -13,6 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "ctrl_sim_tpu_torch"
 REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "ctrl_sim_tpu")
 ALLOWED_TOP = {"numpy", "torch", "ctrl_sim_tpu_torch"}
+LAZY = {"triton", "matplotlib"}  # imported inside the functions that use them, never at import
 
 
 def _sources():
@@ -73,7 +75,7 @@ def test_import_statements_name_only_stdlib_numpy_torch(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            if top == "triton":
-                assert node not in top_level, f"{path}: import triton inside a function only"
+            if top in LAZY:
+                assert node not in top_level, f"{path}: import {top} inside a function only"
                 continue
             assert top in ALLOWED_TOP or top in sys.stdlib_module_names, f"{path}: imports {name}"

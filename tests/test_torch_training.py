@@ -345,9 +345,11 @@ def test_refusals_of_what_is_not_ported(tmp_path, capsys):
     """The DT, IL, trajeglish and CTG++ presets, refused until they were
     ported, equal the JAX package's, and ``train.py --preset dt`` takes a
     step on the CPU (``--preset ctg_plus_plus``:
-    ``tests/test_torch_ctg_training.py``). What stays unported is refused:
-    the multi-device learner. The JSON scene loaders are ported: a data or
-    validation directory without scene JSONs raises."""
+    ``tests/test_torch_ctg_training.py``). The multi-device learner is
+    ported (``tests/test_torch_distributed.py``): ``--distributed`` outside
+    torchrun's environment is refused, naming torchrun. The JSON scene
+    loaders are ported: a data or validation directory without scene JSONs
+    raises."""
     import dataclasses
 
     from ctrl_sim_tpu.config import preset as jax_preset
@@ -357,7 +359,7 @@ def test_refusals_of_what_is_not_ported(tmp_path, capsys):
         for section in ("sim", "waymo", "model", "diffusion", "train", "policy", "eval"):
             assert dataclasses.asdict(getattr(ours, section)) == dataclasses.asdict(getattr(ref, section)), (name, section)
     base = ["--device", "cpu", "--save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun"):
         torch_train.main(base + ["--distributed"])
     (tmp_path / "no_scenes").mkdir()
     for flag in ("--data_dir", "--val_dir"):
