@@ -10,9 +10,11 @@ code is 0 only when every phase passed:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one nvcc per source, all started together), with
-   ptxas's registers and spills per kernel, and the HMMA (tensor-core)
-   instructions per kernel in the SASS of each library (``cuobjdump``):
-   every bf16 K1, K2, K3 and K4 kernel must have some;
+   ptxas's registers and spills per kernel, and per kernel the tensor-core
+   and TMA instructions in the SASS of each library (``cuobjdump``): every
+   instance of the bf16 K1 and K2 kernels must have HMMA (``mma.sync``),
+   and every instance of the bf16 K3 and K4 kernels HGMMA (``wgmma``) and
+   UTMALDG (TMA loads) and no HMMA;
 3. kernels K1 (decode attention) and K2 (decode attention over the int8
    cache) against their plain PyTorch versions on the card: the rollout's
    shapes (256 lanes, Q = 32 and 16 queries, N = 1536 keys, H = 256 = 8
@@ -42,9 +44,15 @@ code is 0 only when every phase passed:
    widths 16 and 64, a ragged strict case at d = 64 and a windowed 2-token
    layout at d = 16: every case has partial tiles on the diagonal;
    tolerances 2e-2 absolute on outputs and 5e-2 of max |grad| on gradients
-   in bf16, 1e-4 and 1e-4 in f32. Times of the kernels at dropout 0.1 and
-   0, the plain version and the library yardstick (SDPA with the boolean
-   [T, T] mask, at dropout 0) on the train step's B = 16 inputs;
+   in bf16, 1e-4 and 1e-4 in f32; with dropout in bf16, the backward runs
+   on the keep bits the forward saved, which equal the plain hash's bit for
+   bit on every word the kernels walk. Times of the kernels at dropout 0.1
+   and 0, the plain version and the library yardstick (SDPA with the
+   boolean [T, T] mask, at dropout 0) on the train step's B = 16 inputs,
+   beside the bound and the floor (the exps, 16 an SM a clock, one pass in
+   K3 and two in K4, and with dropout K3's hash, about 10 integer
+   operations an element at 64 an SM a clock; the card's SM count and
+   maximum SM clock);
    k3-k4-family-shapes: the same at the other families' train layouts, in
    bf16 at dropout 0 and 0.1, timed: B = 16 at T = 32 x 24 x 1 = 768
    (trajeglish) and T = 2304 with the state token second (DT), B = 4 at
@@ -217,6 +225,7 @@ script itself with torchrun's environment variables.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import re
@@ -234,17 +243,25 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # of max |grad|
 PLAIN_LANES = 32  # lanes a call of K3's plain version at the exact rollout's shape (5.4 GB of fp32 scores)
-IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators, 64-row tiles, cp.async "
-                  "ring, mask only on partial tiles; f32: CUDA cores")
+IMPLEMENTATION = ("bf16: tensor cores, wgmma m64nNk16 with fp32 accumulators fed by TMA (64-row tiles, 3-stage "
+                  "mbarrier ring), a producer and a consumer warpgroup a block (setmaxnreg); in the forward the "
+                  "producers also hash the dropout keep bits and build the partial tiles' mask words, saved for "
+                  "the backward, which reads them and hashes nothing; f32: CUDA cores")
 DECODE_IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators; a warp per (lane, head, "
                          "16 or 32 query rows) streams all its keys in 32-key chunks through its own cp.async "
                          "ring of swizzled tiles, 4 heads of a lane a block; f32: CUDA cores")
-# the bf16 kernels of each source, which must run on the tensor cores (HMMA in their SASS)
-MMA_KERNELS = {
-    "decode_attention.cu": ("decode_attention_mma_kernel",),
-    "decode_attention_q8.cu": ("decode_attention_q8_mma_kernel",),
-    "flash_attention.cu": ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel"),
+# the bf16 kernels of each source, and the SASS instructions each instance must have (and not have):
+# HMMA is mma.sync, HGMMA wgmma, UTMALDG a TMA load
+TENSOR_CORE_KERNELS = {
+    "decode_attention.cu": (("decode_attention_mma_kernel",), ("HMMA",), ()),
+    "decode_attention_q8.cu": (("decode_attention_q8_mma_kernel",), ("HMMA",), ()),
+    "flash_attention.cu": (("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
+                           ("HGMMA", "UTMALDG"), ("HMMA",)),
 }
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+EXP_PER_SM_CLOCK = 16  # MUFU ex2 a clock on an SM (Hopper)
+INT_PER_SM_CLOCK = 64  # 32-bit integer multiply-adds a clock on an SM
+HASH_OPS = 10  # integer operations of the murmur3 keep bit an element
 # the executed reference at the deployed shape (tools/make_model_goldens.py --full)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "reference_model_full.npz"
 GOLDEN_CONFIG = {
@@ -299,8 +316,9 @@ def _ptxas_lines(report: str):
             yield kernel, line.split(":", 1)[-1].strip()
 
 
-def _hmma_counts(library) -> dict[str, int]:
-    """HMMA (tensor-core) instructions per kernel in the SASS of a built library."""
+def _sass_counts(library) -> dict[str, dict[str, int]]:
+    """Per kernel in the SASS of a built library, the instructions of each
+    opcode of ``SASS_OPS``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
@@ -309,10 +327,29 @@ def _hmma_counts(library) -> dict[str, int]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = _kernel_label(m.group(1))
-            counts[kernel] = 0
-        elif kernel and "HMMA" in line:
-            counts[kernel] += 1
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+        elif kernel:
+            m = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
+            if m:
+                counts[kernel][m.group(1)] += 1
     return counts
+
+
+def _check_sass(counts_by_source: dict, head_dims) -> list[str]:
+    """The bf16 kernel instances whose SASS lacks an instruction that
+    ``TENSOR_CORE_KERNELS`` requires, or has one it forbids."""
+    bad = []
+    for source, (names, need, forbid) in TENSOR_CORE_KERNELS.items():
+        counts = counts_by_source[source]
+        for name in names:
+            for d in head_dims:  # every instance of the head width (and of the row tiles)
+                found = [c for k, c in counts.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
+                if not found:
+                    bad.append(f"{name}<{d}>: not built")
+                for c in found:
+                    bad += [f"{name}<{d}>: no {op}" for op in need if not c[op]]
+                    bad += [f"{name}<{d}>: {c[op]} {op}" for op in forbid if c[op]]
+    return bad
 
 
 def _median_ms(fn, reps: int = 30, warmup: int = 5, batch: int = 10) -> float:
@@ -484,18 +521,37 @@ def _flash_inputs(B, steps, A, K, heads, d, dtype, gen):
     return [torch.randn((B, T, D), generator=gen, device="cuda").to(dtype) for _ in range(4)]
 
 
+def _keep_bits_err(keep, spec, heads, dropout_p, seed, batch_offset) -> int:
+    """The count of K3's saved keep words that differ from the plain hash's
+    packed the same way, over the words the kernels walk (the others are
+    never written); 0 for a launch that saved none."""
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    import torch
+
+    if keep is None:
+        return 0
+    B, _, T, _ = keep.shape
+    walked = fa.walked_keep_words(spec, T).to(keep.device)
+    want = fa.dropout_keep_bits(seed, batch_offset, B, heads, T, 1.0 - dropout_p, keep.device)
+    got, want = (x.view(torch.int32)[:, :, walked] for x in (keep, want))  # no indexing of uint32 on the card
+    return int((got != want).sum().item())
+
+
 def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed, batch_offset=0):
     """K3 and K4 against the plain version (autograd for the gradients) on
     one input, the dropout hash's batch index offset by ``batch_offset``
-    (a data-parallel rank's first row); returns the errors, outputs'
-    absolute and gradients' relative to max |grad|."""
+    (a data-parallel rank's first row), K4 on the keep bits K3 saved, which
+    must equal the plain hash's; returns the errors, outputs' absolute and
+    gradients' relative to max |grad|."""
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
 
     dtype = str(q.dtype).removeprefix("torch.")
-    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, batch_offset)
-    grads = fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed, batch_offset)
+    out, lse, keep = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, batch_offset, keep_bits=True)
+    grads = fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed, batch_offset, keep)
+    bits_err = _keep_bits_err(keep, spec, heads, dropout_p, seed, batch_offset)
     leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
     want, want_lse = fa.flash_mha_reference(*leaves, spec, heads, dropout_p, seed, batch_offset)
     want_grads = torch.autograd.grad(want, leaves, do.float())
@@ -508,14 +564,15 @@ def _flash_compare(q, k, v, do, spec, heads, dropout_p, seed, batch_offset=0):
                    for g, w in zip(grads, want_grads))
     grad_abs = max((g.float() - w).abs().max().item() for g, w in zip(grads, want_grads))
     B, T, D = q.shape
-    if out_err > TOL[dtype] or grad_err > GRAD_TOL[dtype]:
+    if out_err > TOL[dtype] or grad_err > GRAD_TOL[dtype] or bits_err:
         raise AssertionError(
             f"K3/K4 disagree with the plain version at B={B} T={T} H={D}/{heads} "
             f"{dtype} p={dropout_p}: outputs {out_err} (tol {TOL[dtype]}), gradients "
-            f"{grad_err} of max |grad| (tol {GRAD_TOL[dtype]})")
+            f"{grad_err} of max |grad| (tol {GRAD_TOL[dtype]}), saved keep words {bits_err} (tol 0)")
     return {"shape": f"B={B} T={T} H={D}/{heads} {dtype} p={dropout_p}"
                      + (f" batch offset {batch_offset}" if batch_offset else ""),
-            "out_err": out_err, "grad_err": grad_err, "grad_abs_err": grad_abs}
+            "out_err": out_err, "grad_err": grad_err, "grad_abs_err": grad_abs,
+            "keep_words_checked": 0 if keep is None else int(fa.walked_keep_words(spec, T).sum()) * B * heads}
 
 
 def _flash_case(B, steps, A, K, heads, d, dtype, dropout_p, gen, own=False, window=None, batch_offset=0):
@@ -545,15 +602,19 @@ def _flash_rank_case(gen) -> dict:
     q, k, v, do = _flash_inputs(16, 32, 24, 3, heads, 32, torch.bfloat16, gen)
     rows = [x[8:].contiguous() for x in (q, k, v, do)]
     row = _flash_compare(*rows, spec, heads, p, seed, batch_offset=8)
-    whole = fa.flash_mha_fwd(q, k, v, spec, heads, p, seed)
-    whole = (*whole, *fa.flash_mha_bwd(q, k, v, whole[0], do, whole[1], spec, heads, p, seed))
-    part = fa.flash_mha_fwd(*rows[:3], spec, heads, p, seed, 8)
-    part = (*part, *fa.flash_mha_bwd(*rows[:3], part[0], rows[3], part[1], spec, heads, p, seed, 8))
+    walked = fa.walked_keep_words(spec, q.shape[1]).cuda()
+
+    def launch(x, offset):
+        out, lse, keep = fa.flash_mha_fwd(*x[:3], spec, heads, p, seed, offset, keep_bits=True)
+        grads = fa.flash_mha_bwd(*x[:3], out, x[3], lse, spec, heads, p, seed, offset, keep)
+        return out, lse, keep.view(torch.int32)[:, :, walked], *grads
+
+    whole, part = launch((q, k, v, do), 0), launch(rows, 8)
     row["whole_err"] = max(float((a.float() - b[8:].float()).abs().max()) for a, b in zip(part, whole))
     if row["whole_err"] != 0.0:
         raise AssertionError(f"K3/K4 at batch offset 8 differ from rows 8-15 of the whole launch by "
-                             f"{row['whole_err']} (out, lse, dq, dk, dv)")
-    row["shape"] += ", equal to rows 8-15 of the B=16 launch (out, lse, dq, dk, dv)"
+                             f"{row['whole_err']} (out, lse, keep words, dq, dk, dv)")
+    row["shape"] += ", equal to rows 8-15 of the B=16 launch (out, lse, walked keep words, dq, dk, dv)"
     return row
 
 
@@ -569,20 +630,34 @@ def _flash_family_case(B, K, state_index, dropout_p, gen):
     spec, seed = fa.MaskSpec(24, K, state_index, False, None), torch.tensor([11], device="cuda")
     row = _flash_compare(q, k, v, do, spec, 8, dropout_p, seed)
     row["shape"] += f" K={K} state_index={state_index}"
-    out, lse = fa.flash_mha_fwd(q, k, v, spec, 8, dropout_p, seed)
-    row["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, 8, dropout_p, seed))
-    row["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, 8, dropout_p, seed))
-    bounds = _flash_bounds(B, q.shape[1], 256, 8, spec, "bfloat16")
+    row.update(_flash_times(q, k, v, do, spec, 8, dropout_p, seed))
+    bounds = _flash_bounds(B, q.shape[1], 256, 8, spec, "bfloat16", dropout_p)
     row["fwd_bound_ms"], row["bwd_bound_ms"] = bounds["fwd"][0], bounds["bwd"][0]
-    del q, k, v, do, out, lse
+    row["fwd_floor_ms"], row["bwd_floor_ms"] = bounds["fwd_floor_ms"], bounds["bwd_floor_ms"]
+    del q, k, v, do
     torch.cuda.empty_cache()
     return row
 
 
-def _flash_bounds(B, T, H, heads, spec, dtype):
+@functools.lru_cache(maxsize=1)
+def _sm_clocks_per_s() -> float:
+    """The card's SM count times its maximum SM clock (nvidia-smi), per second."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def _flash_bounds(B, T, H, heads, spec, dtype, dropout_p=0.0):
     """Least times of K3 and K4 on this card for these inputs: the larger
     of the mask's admitted pairs' operations at the peak rate and the bytes
-    read once and written once at the memory rate."""
+    read once and written once at the memory rate. Beside them the floors
+    of the per-element work on the CUDA cores, which the bound does not
+    count: the larger of the exps (one an admitted element and pass, at
+    ``EXP_PER_SM_CLOCK``; K3 one pass, K4 two) and, with dropout, K3's
+    murmur3 keep bit (``HASH_OPS`` an element at ``INT_PER_SM_CLOCK``; K4
+    reads the bits K3 saved)."""
     import torch
 
     from ctrl_sim_tpu_torch.ops import flash_attention as fa
@@ -597,7 +672,22 @@ def _flash_bounds(B, T, H, heads, spec, dtype):
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = flops / PEAK_OPS_PER_S[dtype] * 1e3
         out[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    elements, clocks = pairs * B * heads, _sm_clocks_per_s()
+    hash_ms = elements * HASH_OPS / (INT_PER_SM_CLOCK * clocks) * 1e3 if dropout_p > 0 else 0.0
+    for name, passes, hashes in (("fwd", 1, hash_ms), ("bwd", 2, 0.0)):
+        out[f"{name}_floor_ms"] = max(elements * passes / (EXP_PER_SM_CLOCK * clocks) * 1e3, hashes)
     return out
+
+
+def _flash_times(q, k, v, do, spec, heads, dropout_p, seed) -> dict:
+    """K3 and K4 timed on one input as the train step runs them: K3 saving
+    the keep bits (with dropout on), K4 reading them."""
+    from ctrl_sim_tpu_torch.ops import flash_attention as fa
+
+    out, lse, keep = fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, keep_bits=True)
+    return {"fwd_ms": _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, keep_bits=True)),
+            "bwd_ms": _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed,
+                                                          keep=keep))}
 
 
 def _flash_main(gen):
@@ -616,12 +706,12 @@ def _flash_main(gen):
     T = q.shape[1]
     res = {"check": _flash_compare(q, k, v, do, spec, heads, 0.1, seed),
            "check_p0": _flash_compare(q, k, v, do, spec, heads, 0.0, seed),
-           "bound": _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")}
+           "bound": _flash_bounds(B, T, heads * d, heads, spec, "bfloat16", 0.1),
+           "bound_p0": _flash_bounds(B, T, heads * d, heads, spec, "bfloat16", 0.0)}
     torch.cuda.empty_cache()
     for p, tag in ((0.1, ""), (0.0, "_p0")):
-        out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, p, seed)
-        res["fwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, p, seed))
-        res["bwd_ms" + tag] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, p, seed))
+        times = _flash_times(q, k, v, do, spec, heads, p, seed)
+        res["fwd_ms" + tag], res["bwd_ms" + tag] = times["fwd_ms"], times["bwd_ms"]
 
     res.update(_flash_plain_and_library_ms(q, k, v, do, spec, heads, 0.1, seed))
     return res
@@ -1056,7 +1146,7 @@ def _flash_eval_shape(gen, B: int) -> dict:
     q, k, v, _ = _flash_inputs(B, 32, 24, 3, heads, d, torch.bfloat16, gen)
     T = q.shape[1]
     with torch.inference_mode():
-        out, lse = fa.flash_mha_fwd(q, k, v, spec, heads)
+        out, lse, _ = fa.flash_mha_fwd(q, k, v, spec, heads)
         slices = [slice(i, i + PLAIN_LANES) for i in range(0, B, PLAIN_LANES)]
         err = 0.0
         for b in slices:
@@ -1083,12 +1173,13 @@ def _flash_eval_shape(gen, B: int) -> dict:
         q4, k4, v4 = (x.view(B, T, heads, d).transpose(1, 2) for x in (q, k, v))
         library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
                                 reps=10, warmup=2)
-    bound, by = _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")["fwd"]
+    bounds = _flash_bounds(B, T, heads * d, heads, spec, "bfloat16")
+    (bound, by), floor = bounds["fwd"], bounds["fwd_floor_ms"]
     del q, k, v, out, lse, mask, q4, k4, v4
     torch.cuda.empty_cache()
     return {"shape": f"B={B} T={T} H=256/8 bf16 dropout 0, forward only", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
-            "inference_mode_bytes_held": held}
+            "floor_ms": floor, "inference_mode_bytes_held": held}
 
 
 def _eval_exact() -> dict:
@@ -1292,12 +1383,10 @@ def _flash_width_case(gen, d: int) -> dict:
     q, k, v, do = _flash_inputs(16, 32, 24, 3, heads, d, torch.bfloat16, gen)
     spec, seed = fa.MaskSpec(24, 3, 0, False, None), torch.tensor([13], device="cuda")
     row = _flash_compare(q, k, v, do, spec, heads, 0.1, seed)
-    out, lse = fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed)
-    row["fwd_ms"] = _median_ms(lambda: fa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed))
-    row["bwd_ms"] = _median_ms(lambda: fa.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, 0.1, seed))
-    bounds = _flash_bounds(16, q.shape[1], heads * d, heads, spec, "bfloat16")
+    row.update(_flash_times(q, k, v, do, spec, heads, 0.1, seed))
+    bounds = _flash_bounds(16, q.shape[1], heads * d, heads, spec, "bfloat16", 0.1)
     (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = bounds["fwd"], bounds["bwd"]
-    del out, lse
+    row["fwd_floor_ms"], row["bwd_floor_ms"] = bounds["fwd_floor_ms"], bounds["bwd_floor_ms"]
     row.update(_flash_plain_and_library_ms(q, k, v, do, spec, heads, 0.1, seed))
     del q, k, v, do
     torch.cuda.empty_cache()
@@ -2756,19 +2845,16 @@ def main() -> int:
         for kernel, line in _ptxas_lines(report):
             print(f"  {source}: {kernel}: {line}")
     build_s = time.perf_counter() - t0
-    bare = []
-    for source, names in MMA_KERNELS.items():
-        hmma = _hmma_counts(build.library_path(source))
-        for kernel, count in sorted(hmma.items()):
-            print(f"  {source}: {kernel}: {count} HMMA")
-        for name in names:
-            for d in KERNEL_HEAD_DIMS:  # every instance of the head width (and of the row tiles)
-                counts = [c for k, c in hmma.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
-                if not counts or not all(counts):
-                    bare.append(f"{name}<{d}>")
-    if bare:
-        raise AssertionError(f"bf16 kernels without tensor-core (HMMA) instructions: {bare}")
-    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K1-K4 kernel")
+    sass = {source: _sass_counts(build.library_path(source)) for source in TENSOR_CORE_KERNELS}
+    for source, counts in sass.items():
+        for kernel, c in sorted(counts.items()):
+            print(f"  {source}: {kernel}: " + ", ".join(f"{c[op]} {op}" for op in SASS_OPS))
+    bad = _check_sass(sass, KERNEL_HEAD_DIMS)
+    if bad:
+        raise AssertionError(f"bf16 kernels without their tensor-core or TMA instructions: {bad}")
+    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K1-K2 "
+           f"instance; HGMMA and UTMALDG, and no HMMA, in every bf16 K3-K4 instance (d = "
+           f"{', '.join(map(str, KERNEL_HEAD_DIMS))})")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2864,19 +2950,26 @@ def main() -> int:
         print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, "
               f"gradient err {row['grad_err']:.3g} of max |grad| ({row['grad_abs_err']:.3g} absolute)")
     (fwd_bound, fwd_by), (bwd_bound, bwd_by) = ft["bound"]["fwd"], ft["bound"]["bwd"]
-    print(f"  K3 forward, B=16 T=2304 H=256/8 bf16 (tensor cores): kernel {ft['fwd_ms']:.4f} ms at p=0.1, "
-          f"{ft['fwd_ms_p0']:.4f} ms at p=0; bound {fwd_bound:.4f} ms ({fwd_by}; {ft['bound']['pairs']} visible "
-          f"pairs), plain {ft['plain_fwd_ms']:.4f} ms, library (SDPA, bool mask, p=0) {ft['library_fwd_ms']:.4f} ms")
-    print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms at p=0.1, {ft['bwd_ms_p0']:.4f} ms at p=0; "
-          f"bound {bwd_bound:.4f} ms ({bwd_by}), plain (autograd) {ft['plain_bwd_ms']:.4f} ms, library (SDPA "
+    floors = {f"{name}{tag}": ft["bound" + tag][f"{name}_floor_ms"] for name in ("fwd", "bwd") for tag in ("", "_p0")}
+    print(f"  K3 forward, B=16 T=2304 H=256/8 bf16 (tensor cores): kernel {ft['fwd_ms']:.4f} ms at p=0.1 (saving "
+          f"the keep bits), {ft['fwd_ms_p0']:.4f} ms at p=0; bound {fwd_bound:.4f} ms ({fwd_by}; "
+          f"{ft['bound']['pairs']} visible pairs), floor {floors['fwd']:.4f} / {floors['fwd_p0']:.4f} ms, plain "
+          f"{ft['plain_fwd_ms']:.4f} ms, library (SDPA, bool mask, p=0) {ft['library_fwd_ms']:.4f} ms")
+    print(f"  K4 backward, same shape: kernel {ft['bwd_ms']:.4f} ms at p=0.1 (reading the saved bits), "
+          f"{ft['bwd_ms_p0']:.4f} ms at p=0; bound {bwd_bound:.4f} ms ({bwd_by}), floor {floors['bwd']:.4f} / "
+          f"{floors['bwd_p0']:.4f} ms, plain (autograd) {ft['plain_bwd_ms']:.4f} ms, library (SDPA "
           f"backward, p=0) {ft['library_bwd_ms']:.4f} ms")
     for d, row in widths.items():
         print(f"  K3/K4 at d = {d} (padded to {kernel_head_dim(d)}), {row['shape']}: K3 {row['fwd_ms']:.4f} ms, bound "
-              f"{row['fwd_bound_ms']:.4f} ms ({row['fwd_bound_by']}), plain {row['plain_fwd_ms']:.4f} ms, library "
+              f"{row['fwd_bound_ms']:.4f} ms ({row['fwd_bound_by']}), floor {row['fwd_floor_ms']:.4f} ms, plain "
+              f"{row['plain_fwd_ms']:.4f} ms, library "
               f"(SDPA, bool mask, p=0) {row['library_fwd_ms']:.4f} ms; K4 {row['bwd_ms']:.4f} ms, bound "
-              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}), plain (autograd) {row['plain_bwd_ms']:.4f} ms, "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bwd_bound_by']}), floor {row['bwd_floor_ms']:.4f} ms, plain "
+              f"(autograd) {row['plain_bwd_ms']:.4f} ms, "
               f"library (SDPA backward, p=0) {row['library_bwd_ms']:.4f} ms; bounds at the true width")
-    _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32)")
+    words = sum(row.get("keep_words_checked", 0) for row in flash.values())
+    _phase("k3-k4-vs-plain", t0, f"{len(flash)} cases within 2e-2 / 5e-2 (bf16), 1e-4 / 1e-4 (f32); {words} saved "
+           f"keep words equal to the plain hash's")
 
     t0 = time.perf_counter()
     fam_flash = {}
@@ -2885,8 +2978,9 @@ def main() -> int:
             fam_flash[f"{name} p={p}"] = _flash_family_case(B, K, state_index, p, gen)
     for name, row in fam_flash.items():
         print(f"  K3/K4 {name}: {row['shape']} output err {row['out_err']:.3g}, gradient err {row['grad_err']:.3g} "
-              f"of max |grad|; K3 {row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}), K4 {row['bwd_ms']:.4f} "
-              f"ms (bound {row['bwd_bound_ms']:.4f})")
+              f"of max |grad|; K3 {row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, floor "
+              f"{row['fwd_floor_ms']:.4f}), K4 {row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, floor "
+              f"{row['bwd_floor_ms']:.4f})")
     _phase("k3-k4-family-shapes", t0, f"{len(fam_flash)} cases within 2e-2 / 5e-2 (bf16)")
 
     t0 = time.perf_counter()
@@ -2961,7 +3055,7 @@ def main() -> int:
     m = ev["metrics"]
     for label, row in (("the exact rollout's decode shape", k3_eval), ("one group a scene", k3_b32)):
         print(f"  K3 at {label}, {row['shape']}: err {row['max_abs_err']:.3g}, kernel {row['ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, library (SDPA, bool "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), floor {row['floor_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (SDPA, bool "
               f"mask) {row['library_ms']:.4f} ms; a launch under inference_mode holds "
               f"{row['inference_mode_bytes_held']} bytes (its output) afterwards", flush=True)
     _phase("eval-exact", t0,
@@ -3013,6 +3107,7 @@ def main() -> int:
 
     def flash_family_rows(key):
         return [{"case": name, "shape": r["shape"], "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
+                 "floor_ms": r[f"{key}_floor_ms"],
                  "max_abs_err": r["out_err"] if key == "fwd" else r["grad_abs_err"],
                  "launches_per_step": fam_train[name.split(" ")[0]]["launches_per_step"]}
                 for name, r in fam_flash.items()]
@@ -3023,7 +3118,7 @@ def main() -> int:
 
     def flash_width_rows(key):
         return [{"case": f"d={d}", "shape": r["shape"], "ms": r[f"{key}_ms"], "bound_ms": r[f"{key}_bound_ms"],
-                 "bound_by": r[f"{key}_bound_by"], "padded_to": kernel_head_dim(d),
+                 "bound_by": r[f"{key}_bound_by"], "floor_ms": r[f"{key}_floor_ms"], "padded_to": kernel_head_dim(d),
                  "plain_ms": r[f"plain_{key}_ms"], "library_ms": r[f"library_{key}_ms"],
                  "max_abs_err": r["out_err"] if key == "fwd" else r["grad_abs_err"]} for d, r in widths.items()]
 
@@ -3084,8 +3179,11 @@ def main() -> int:
             "plain_ms": ft["plain_fwd_ms"],
             "bound_ms": fwd_bound,
             "bound_by": fwd_by,
+            "floor_ms": floors["fwd"],
+            "floor_ms_dropout_0": floors["fwd_p0"],
             "library_ms": ft["library_fwd_ms"],
-            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1, saving the keep bits (ms_dropout_0: dropout 0, as "
+                     "library_ms); floor_ms: the exps and the keep bits' hash on the CUDA cores, beside bound_ms",
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("fwd"),
             "head_width_cases": flash_width_rows("fwd"),
@@ -3107,8 +3205,11 @@ def main() -> int:
             "plain_ms": ft["plain_bwd_ms"],
             "bound_ms": bwd_bound,
             "bound_by": bwd_by,
+            "floor_ms": floors["bwd"],
+            "floor_ms_dropout_0": floors["bwd_p0"],
             "library_ms": ft["library_bwd_ms"],
-            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1 (ms_dropout_0: dropout 0, as library_ms)",
+            "shape": "B=16 T=2304 H=256/8 bf16 dropout 0.1, reading the forward's keep bits (ms_dropout_0: "
+                     "dropout 0, as library_ms); floor_ms: two passes of exps on the CUDA cores, beside bound_ms",
             "implementation": IMPLEMENTATION,
             "family_shapes": flash_family_rows("bwd"),
             "head_width_cases": flash_width_rows("bwd"),

@@ -29,34 +29,59 @@
 // pass (336 M elements at 16 per SM per clock, about 0.08 ms a pass; K3 has
 // one pass, K4 two, since both its kernels recompute P), and with dropout
 // the murmur3 keep bit, about 10 integer operations an element (about
-// 0.2 ms a pass at 64 per SM per clock).
+// 0.2 ms a pass at 64 per SM per clock), which only the forward computes:
+// it saves the bits for the backward.
 //
-// bf16: tensor cores (flash_*_mma_kernel). FlashAttention-2's layout with
-// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators): a block of 4 warps
-// owns 64 rows, 16 a warp, and streams 64-row tiles of the other side
-// through a 2-stage cp.async ring of bf16 shared-memory tiles, rows padded
-// to D + 8 elements so that ldmatrix (.trans where the product needs the
-// tile transposed) is free of bank conflicts. The fixed side's operands
-// (Q, and dO in the dq kernel; K and V in the dk/dv kernel) are loaded once
-// from device memory straight into A fragments. Scores stay in fp32
-// accumulators; the online softmax works on the fragments with quad
-// shuffles; P (after the keep bit) and dS are rounded to bf16 and reused in
-// registers as the A operand of the next product, never going through
-// shared memory. Each output is written once, in bf16. The kernels are
-// latency-bound, not bound by the tensor cores: each works through its
-// streamed tile 16 or 32 columns at a time, which keeps few scores live, and
-// __launch_bounds__ caps the registers so that 4-6 blocks share an SM
-// without spilling (d = 32).
+// bf16: Hopper's tensor cores, fed by TMA, warp-specialised
+// (flash_*_wgmma_kernel; building blocks in wgmma_sm90.cuh). A block owns
+// one 64-row tile (queries in the forward and dq kernels, keys in the dk/dv
+// kernel) and walks the 64-row tiles of the other side that the tile
+// schedule gives it. It has 256 threads: one consumer warpgroup (16 of the
+// tile's rows a warp) and one producer warpgroup, which setmaxnreg cuts to
+// 24 registers a thread (40 in the forward) so that the consumers get the
+// rest (setmaxnreg acts on whole warpgroups: on a lone warp the card
+// raises an illegal instruction).
+// - The producer's first warp loads the block's fixed tiles once (Q; Q and
+//   dO; K and V) and streams the other side's tile pairs (K and V; Q and
+//   dO) through a ring of 3 stages in shared memory, each a TMA load of 64
+//   rows x the head's D columns of a [B, n, H] tensor map (3-D, so rows
+//   past n come in as zeros), swizzled by the row's span, completing on the
+//   stage's full mbarrier. In the backward it also copies, by cp.async
+//   tracked by the same barrier, the dk/dv kernel's lse and delta and the
+//   pair's dropout keep words, and writes the streamed rows' (t, a, k)
+//   coordinates for a partial tile; the other three warps leave.
+// - In the forward all four producer warps stay: each of the 128 threads
+//   computes one 32-bit word of the stage's tile pair (query row, 32 keys):
+//   with dropout its keep bits (the murmur3 hash, 32 of them in four
+//   independent chains, also written to the saved mask), and on a partial
+//   tile its visibility bits (the mask predicate a word at a time, from
+//   prefix masks and the agent's and state type's patterns: visible_keys).
+//   The hash and the mask run beside the consumers' softmax instead of in it.
+// - The consumers run every product as wgmma m64nNk16 (fp32 accumulators):
+//   S = Q K^T with both operands in shared memory, then O += P V with P,
+//   rounded to bf16, as the A operand in registers and V transposed by the
+//   instruction; the backward's dP = dO V^T, dQ += dS K, dV += P^T dO and
+//   dK += dS^T Q alike. The online softmax and the mask work on the
+//   accumulators (rows g and g + 8 of a warp's 16, quad shuffles, tree
+//   reductions), branch-free: masked pairs are set once on a partial tile,
+//   and without dropout the backward's keep words are all ones.
+// - Softmax overlaps the products across blocks: 3 blocks share an SM in
+//   the forward (2 at d = 64) and 2 in the backward, so one warpgroup's
+//   exps run while another's wgmma does. What bounds them is then the
+//   per-element work on the CUDA cores: one exp per admitted element and
+//   pass (K3 one pass, K4 two), and in the forward with dropout the murmur3
+//   keep bit.
+// - Dropout keep bits are hashed once, in the forward, which writes them
+//   packed (bit j % 32 of word j / 32 of query row i) for the tile pairs it
+//   walks; both backward kernels walk the same pairs and read them, so K4
+//   runs no hash.
 // - The tile schedule comes from the wrapper (ops/flash_attention.py:
 //   tile_table): per 64-row tile, the range of tiles of the other side that
 //   hold a visible pair, and within it the run of fully visible tiles, where
 //   the predicate is not evaluated at all; tiles outside the range are never
 //   touched. With the default mask every key of an earlier timestep is
 //   visible, so only the tiles on a query tile's own timestep are partial.
-//   Partial tiles read the streamed side's (t, a, k) coordinates from
-//   shared memory, computed once per tile, and the fixed side's from
-//   registers. Entries run heaviest first, so the longest blocks start
-//   first.
+//   Entries run heaviest first, so the longest blocks start first.
 // - The backward is two kernels and no atomics, so it is deterministic:
 //   the dq kernel walks key tiles per 64-query tile (and writes delta for
 //   the second), the dk/dv kernel walks the query tiles that see each
@@ -90,6 +115,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -134,19 +160,51 @@ __device__ __forceinline__ bool visible(int ti, int ai, int ii, int tj, int aj, 
   return out;
 }
 
+// Bits k < 32 set where k < bits (clamped).
+__device__ __forceinline__ uint32_t prefix_bits(int bits) {
+  return bits <= 0 ? 0u : bits >= 32 ? ~0u : (1u << bits) - 1u;
+}
+
+// visible() of query i (timestep ti, agent ai) over the 32 keys j0 + k, as
+// bit k: the mask a word at a time, from prefix masks and the patterns of
+// the query's agent and of the state type. tj0 = j0 / (A K) and kind0 = j0 %
+// K come from the caller; keys past T are the caller's.
+__device__ __forceinline__ uint32_t visible_keys(int i, int ti, int ai, int j0, int tj0, int kind0,
+                                                 const MaskSpec& s) {
+  const int ak = s.A * s.K;
+  uint32_t agent = 0u;  // aj == ai: keys t ak + ai K + [0, K)
+  for (int t = tj0; t * ak < j0 + 32; ++t) {
+    const int lo = t * ak + ai * s.K - j0;
+    agent |= prefix_bits(lo + s.K) & ~prefix_bits(lo);
+  }
+  uint32_t state = 0u;  // kj == state_index
+  for (int k = (s.state_index - kind0 + s.K) % s.K; k < 32; k += s.K) state |= 1u << k;
+  const uint32_t lt_t = prefix_bits(ti * ak - j0);           // tj < ti
+  uint32_t base = prefix_bits(i + 1 - j0) & (lt_t | agent);  // jj <= ii
+  if (s.own) base &= ~(lt_t & ~agent & ~state);
+  uint32_t out = (state & prefix_bits((ti + 1) * ak - j0)) | base;  // state tokens of tj <= ti
+  if (s.has_window) out &= ~prefix_bits((ti - s.window + 1) * ak - j0);  // tj > ti - window
+  return out;
+}
+
 // flash_attention.py:_dropout_keep: the murmur3 finalizer over
 // (row * kHashRow) ^ (col * kHashCol) ^ (b * kHashB) ^ (h * kHashH) ^ seed.
 // The tensor-core kernels build that word from per-row and per-column parts.
 constexpr uint32_t kHashRow = 0x9E3779B1u, kHashCol = 0x85EBCA77u;
 constexpr uint32_t kHashB = 0xC2B2AE3Du, kHashH = 0x27D4EB2Fu;
 
-__device__ __forceinline__ bool keep_hashed(uint32_t x, uint32_t threshold) {
-  x ^= x >> 16;
+// The finalizer after its first step, x ^ (x >> 16), which distributes over
+// the xor of a row part and a column part, so callers may apply it to each.
+__device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t threshold) {
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x < threshold;
+}
+
+__device__ __forceinline__ bool keep_hashed(uint32_t x, uint32_t threshold) {
+  return keep_mixed(x ^ (x >> 16), threshold);
 }
 
 __device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t b, uint32_t h, uint32_t row,
@@ -633,21 +691,35 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores: mma.sync.m16n8k16, cp.async, ldmatrix
+// bf16 on Hopper: TMA, wgmma, warp specialisation (wgmma_sm90.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kBlock = 64;  // rows per block (16 a warp) and rows per streamed tile
-// Columns of a streamed tile each kernel works on at once (8 per block of
-// NB), and the blocks an SM must hold (__launch_bounds__), chosen together
-// on the card at d = 32: narrower chunks keep fewer scores live, so the
-// register cap that lets 4-6 blocks share an SM costs no spills. d = 64
-// needs twice the accumulators and keeps fewer blocks.
-constexpr int kFwdNB = 4, kDqNB = 2, kDkdvNB = 2;
-constexpr int fwd_min_blocks(int D) { return D > 32 ? 3 : 6; }
-constexpr int dq_min_blocks(int D) { return D > 32 ? 2 : 5; }
-constexpr int dkdv_min_blocks(int D) { return D > 32 ? 2 : 4; }
+constexpr int kBlock = kTileRows;  // rows per block and rows per streamed tile
+constexpr int kConsumerThreads = 128;  // one warpgroup: 16 of the block's rows a warp
+// and a producer warpgroup (setmaxnreg acts on whole warpgroups), of which
+// one warp loads; the other three hash and mask in the forward and leave at
+// once in the backward
+constexpr int kWsThreads = kConsumerThreads + 128;
+constexpr int kStages = 3;  // streamed tile pairs in flight
+constexpr int kProducerRegs = 24;      // the backward's loader warp
+constexpr int kFwdProducerRegs = 40;   // the forward's producers, which also hash and mask
+
+// Blocks an SM must hold (__launch_bounds__), chosen so that the consumers
+// do not spill: the forward keeps 32 fp32 scores and D / 4 accumulators a
+// thread, the backward kernels twice the scores and one or two accumulators.
+__host__ __device__ constexpr int fwd_min_blocks(int D) { return D > 32 ? 2 : 3; }
+__host__ __device__ constexpr int bwd_min_blocks(int) { return 2; }
+// The registers a thread gets at launch, as ptxas allocates them under those
+// bounds (its report, and cudaFuncGetAttributes before the first launch,
+// which refuses a kernel that gets fewer), and what the consumer warpgroup
+// takes once the producer warpgroup has dropped to producer_regs: the
+// block's registers at launch pay for both.
+__host__ __device__ constexpr int fwd_entry_regs(int D) { return D > 32 ? 128 : 80; }
+__host__ __device__ constexpr int bwd_entry_regs(int) { return 128; }
+__host__ __device__ constexpr int consumer_regs(int entry, int producer_regs) {
+  return (kWsThreads * entry - (kWsThreads - kConsumerThreads) * producer_regs) / kConsumerThreads / 8 * 8;
+}
+
 // One entry of the wrapper's tile table: the block's own tile, and the range
 // [begin, end) of tiles of the other side it walks, of which [full_begin,
 // full_end) are fully visible.
@@ -658,165 +730,347 @@ struct TileRange {
   __device__ __forceinline__ bool partial(int t) const { return t < full_begin || t >= full_end; }
 };
 
-// Rows [r0, r0 + kBlock) x D of x (row stride H) into a padded shared tile
-// by cp.async, 16 bytes a copy; rows >= n are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile_async(uint16_t (*dst)[D + 8], const __nv_bfloat16* __restrict__ x,
-                                                int r0, int n, int H) {
-  constexpr int kPerRow = D / 8;
-  constexpr int kCopies = kBlock * kPerRow / kMmaThreads;
+// What the producer warp writes beside a streamed tile pair, per streamed
+// row j: on partial tiles its (t, a, k) coordinates, in the
+// dk/dv kernel the query's lse and delta (copied by cp.async), and in the backward
+// the two dropout keep words of the tile pair (all ones without dropout),
+// for the query rows of the pair (the fixed tile's in the dq kernel, the
+// streamed tile's in dk/dv).
+struct StageRows {
+  int t[kBlock], a[kBlock], kind[kBlock];
+  float lse[kBlock], dlt[kBlock];
+  uint32_t bits[kBlock][2];
+  uint32_t vis[kBlock][2];  // the forward's partial tiles: bit k of word w of row r, key 32 w + k visible
+};
+
+// The block's shared memory: NF fixed tiles (loaded once), the ring of
+// streamed tile pairs and their rows, and the barriers. Tiles are whole
+// multiples of 1024 bytes from a 1024-aligned base.
+template <int D, int NF>
+struct WsSmem {
+  uint16_t fixed[NF][kBlock * D];
+  uint16_t ring[kStages][2][kBlock * D];
+  StageRows rows[kStages];
+  uint64_t fixed_full, full[kStages], empty[kStages];
+};
+
+template <int D, int NF>
+constexpr size_t ws_smem_bytes() {
+  return sizeof(WsSmem<D, NF>) + 1024;  // slack to align the base
+}
+
+// The block's shared memory, initialised: fixed_full completes on the
+// fixed tiles' bytes; full[s] on the arrivals of the producer threads that
+// work (32, or 128 when the forward hashes keep bits) after they wrote stage
+// s's rows, plus one arrival with the bytes of the stage's two TMA loads;
+// empty[s] on one arrival per consumer warp done with stage s.
+template <int D, int NF>
+__device__ __forceinline__ WsSmem<D, NF>& ws_smem_init(int producers) {
+  extern __shared__ __align__(16) uint8_t ws_raw[];
+  // aligned by pointer arithmetic on the shared array, so that the compiler
+  // keeps shared-memory loads (LDS), not generic ones
+  uint8_t* base = ws_raw + ((1024 - (smem_addr(ws_raw) & 1023)) & 1023);
+  WsSmem<D, NF>& sm = *reinterpret_cast<WsSmem<D, NF>*>(base);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1 + producers);
+      mbar_init(&sm.empty[s], kConsumerThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+enum class Pass { kFwd, kDq, kDkdv };
+
+// What the forward's producer warpgroup computes beside the loads.
+struct FwdWords {
+  bool dropout;
+  uint32_t bhs, threshold;  // the keep hash's (b, h, seed) part, and its keep threshold
+  uint32_t* keep_bh;        // this (b, h)'s [n, words] keep words to write, or null
+};
+
+// The producer warpgroup: its first warp loads the fixed tiles once, then
+// for each streamed tile of the range, once the consumers released its
+// stage, the two streamed tiles by TMA (lane 0) and the stage's rows. In
+// the forward (fwd not null) every one of its 128 threads also computes one
+// word of the tile pair, query row pt / 2 and keys 32 (pt % 2) on: with
+// dropout its keep bits (the murmur3 hash, into the stage and the saved
+// mask), and on a partial tile its visibility bits. The first warp returns when the
+// consumers released the last stages. The streamed tiles are K and V
+// (forward, dq) or Q and dO (dk/dv); lse_row and delta_row (dk/dv) and
+// keep_bh (backward with dropout: this (b, h)'s [n, words] keep words) may
+// be null.
+template <Pass P, int D, int NF>
+__device__ __forceinline__ void produce(WsSmem<D, NF>& sm, const TileRange& tr, const CUtensorMap* const (&fixed)[NF],
+                                        const CUtensorMap* s0, const CUtensorMap* s1, int b, int h, int n,
+                                        const MaskSpec& spec, const float* __restrict__ lse_row,
+                                        const float* __restrict__ delta_row, const uint32_t* __restrict__ keep_bh,
+                                        int words, const FwdWords* fwd = nullptr) {
+  const int pt = threadIdx.x - kConsumerThreads, lane = pt & 31;
+  const bool loader = pt < 32;
+  const int ak = spec.A * spec.K;
+  // the forward's visibility word: its query row and that row's coordinates
+  const int qi = tr.tile * kBlock + (pt >> 1), qt = qi / ak, qa = (qi / spec.K) % spec.A;
+  if (pt == 0) {
+    tma_prefetch_map(s0);
+    tma_prefetch_map(s1);
+    mbar_arrive_expect_tx(&sm.fixed_full, NF * tile_bytes<D>());
 #pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int row = c / kPerRow, col = (c % kPerRow) * 8;
-    const bool ok = r0 + row < n;
-    cp_async16(&dst[row][col], x + (size_t)(ok ? r0 + row : 0) * H + col, ok);
+    for (int f = 0; f < NF; ++f) tma_load_tile(sm.fixed[f], fixed[f], h * D, tr.tile * kBlock, b, &sm.fixed_full);
+  }
+  for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
+    const int st = it % kStages;
+    mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);  // the first round finds every stage free
+    if (pt == 0) {
+      mbar_arrive_expect_tx(&sm.full[st], 2 * tile_bytes<D>());
+      tma_load_tile(sm.ring[st][0], s0, h * D, tile * kBlock, b, &sm.full[st]);
+      tma_load_tile(sm.ring[st][1], s1, h * D, tile * kBlock, b, &sm.full[st]);
+    }
+    StageRows& rows = sm.rows[st];
+    // device-memory rows by cp.async (zeros past n), which the stage's
+    // phase waits for; the rest by stores before this lane's arrival
+    if (loader && (P == Pass::kDkdv || (P == Pass::kDq && keep_bh != nullptr))) {
+#pragma unroll
+      for (int r = lane; r < kBlock; r += 32) {
+        const int j = tile * kBlock + r;
+        if (P == Pass::kDkdv) {
+          cp_async4(&rows.lse[r], lse_row + (j < n ? j : 0), j < n);
+          cp_async4(&rows.dlt[r], delta_row + (j < n ? j : 0), j < n);
+        }
+        if (keep_bh != nullptr) {
+          const int i = (P == Pass::kDq ? tr.tile : tile) * kBlock + r;  // the query row
+          const int w = 2 * (P == Pass::kDq ? tile : tr.tile);           // the key tile's first word
+          const uint32_t* src = keep_bh + (size_t)(i < n ? i : 0) * words + w;
+          cp_async4(&rows.bits[r][0], src, i < n);
+          cp_async4(&rows.bits[r][1], src + (w + 1 < words ? 1 : 0), i < n && w + 1 < words);
+        }
+      }
+      mbar_track_cp_async(&sm.full[st]);
+    }
+    const bool partial = tr.partial(tile);
+    for (int r = lane; loader && P != Pass::kFwd && r < kBlock; r += 32) {
+      const int j = tile * kBlock + r;
+      if (partial) {
+        rows.t[r] = j / ak;
+        rows.a[r] = (j / spec.K) % spec.A;
+        rows.kind[r] = j % spec.K;
+      }
+      if (P != Pass::kFwd && keep_bh == nullptr) rows.bits[r][0] = rows.bits[r][1] = ~0u;  // no dropout
+    }
+    if (P == Pass::kFwd) {
+      const int j0 = tile * kBlock + 32 * (pt & 1);
+      if (fwd->dropout) {  // 32 hashes in four independent chains; no bits for keys past T
+        uint32_t part[4] = {0u, 0u, 0u, 0u};
+        if (qi < n) {
+          const uint32_t rowh = (uint32_t)qi * kHashRow ^ fwd->bhs, rowmix = rowh ^ (rowh >> 16);
+          const uint32_t col0 = (uint32_t)j0 * kHashCol;
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            const uint32_t col = col0 + (uint32_t)k * kHashCol;
+            if (keep_mixed(rowmix ^ col ^ (col >> 16), fwd->threshold)) part[k & 3] |= 1u << k;
+          }
+        }
+        const uint32_t word = (part[0] | part[1] | part[2] | part[3]) & prefix_bits(n - j0);
+        const int w = j0 / 32;
+        if (qi < n && fwd->keep_bh != nullptr && w < words) fwd->keep_bh[(size_t)qi * words + w] = word;
+        rows.bits[pt >> 1][pt & 1] = word;
+      }
+      if (partial)
+        rows.vis[pt >> 1][pt & 1] = qi < n ? visible_keys(qi, qt, qa, j0, j0 / ak, j0 % spec.K, spec) : 0u;
+    }
+    mbar_arrive(&sm.full[st]);
+  }
+  if (!loader) return;
+  // the loader leaves only once the consumers released every stage it filled
+  const int count = tr.end - tr.begin;
+  for (int it = count > kStages ? count - kStages : 0; it < count; ++it)
+    mbar_wait(&sm.empty[it % kStages], (it / kStages) & 1);
+}
+
+// The consumer warps release a stage: each warp's reads of it are done
+// (its products waited on), and its lane 0 arrives.
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+}
+
+// The scores of 16 columns (two 8-column blocks of the accumulators) as
+// the bf16 A operand of the next product.
+__device__ __forceinline__ void a_frags(uint32_t (&a)[kBlock / 16][4], const float (&s)[kBlock / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlock / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
 }
 
-// The streamed tiles of the forward and dq kernels: K and V, two stages,
-// and each key's (t, a, k) coordinates for the partial tiles.
+// acc += A B for A the 64 x 64 operand in registers and B the 64-row tile
+// (rows the reduction, transposed by the instruction); issued.
 template <int D>
-struct KVStages {
-  uint16_t k[2][kBlock][D + 8];
-  uint16_t v[2][kBlock][D + 8];
-  int t[2][kBlock], a[2][kBlock], kind[2][kBlock];
+__device__ __forceinline__ void product_rs(float (&acc)[D / 8][4], uint32_t (&a)[kBlock / 16][4], const void* tile) {
+  const uint64_t desc = wgmma_desc<D>(tile);
+#pragma unroll
+  for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_t<D>(acc, a[kk], desc + kk * wgmma_row_step<D>());
+}
 
-  __device__ __forceinline__ void fetch(int stage, int tile, const __nv_bfloat16* __restrict__ kp,
-                                        const __nv_bfloat16* __restrict__ vp, int n, int H, const MaskSpec& s) {
-    const int n0 = tile * kBlock;
-    load_tile_async<D>(k[stage], kp, n0, n, H);
-    load_tile_async<D>(v[stage], vp, n0, n, H);
-    if (threadIdx.x < kBlock) {
-      const int j = n0 + threadIdx.x;
-      t[stage][threadIdx.x] = j / (s.A * s.K);
-      a[stage][threadIdx.x] = (j / s.K) % s.A;
-      kind[stage][threadIdx.x] = j % s.K;
-    }
-    cp_async_commit();
-  }
-};
+// s = A B^T over the head width, A and B 64-row tiles (K-major); issued.
+template <int D>
+__device__ __forceinline__ void product_ss(float (&s)[kBlock / 8][4], const void* a, const void* b) {
+  const uint64_t da = wgmma_desc<D>(a), db = wgmma_desc<D>(b);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss<kBlock>(s, da + ks * kWgmmaKStep, db + ks * kWgmmaKStep, ks > 0);
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&x)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
 
 // ---------------------------------------------------------------------------
-// K3 (bf16): forward on tensor cores
+// K3 (bf16): forward
 // ---------------------------------------------------------------------------
 
-template <int D, int NB>
-__global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks(D))
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const long long* __restrict__ seed_ptr,
-                     const int* __restrict__ table, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int n, int H, int heads, MaskSpec spec, float scale, float inv_keep,
-                     uint32_t threshold, int use_dropout, int b_off) {
-  __shared__ __align__(128) KVStages<D> sm;
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, fwd_min_blocks(D))
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const long long* __restrict__ seed_ptr,
+                       const int* __restrict__ table, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       uint32_t* __restrict__ keep, int n, int H, int heads, MaskSpec spec, float scale,
+                       float inv_keep, uint32_t threshold, int use_dropout, int b_off) {
+  WsSmem<D, 1>& sm = ws_smem_init<D, 1>(kWsThreads - kConsumerThreads);
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int words = (n + 31) / 32;
+  if (threadIdx.x >= kConsumerThreads) {
+    setmaxnreg_dec<kFwdProducerRegs>();
+    const size_t bh = (size_t)b * heads + h;
+    const FwdWords fwd{use_dropout != 0, (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr),
+                       threshold, keep == nullptr ? nullptr : keep + bh * n * words};
+    const CUtensorMap* fixed[1] = {&q_map};
+    produce<Pass::kFwd, D, 1>(sm, tr, fixed, &k_map, &v_map, b, h, n, spec, nullptr, nullptr, nullptr, words, &fwd);
+    return;
+  }
+  setmaxnreg_inc<consumer_regs(fwd_entry_regs(D), kFwdProducerRegs)>();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = tr.tile * kBlock + warp * 16;
   const size_t base = (size_t)b * n * H + (size_t)h * D;
-  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
-  const int ak = spec.A * spec.K;
+  const size_t bh = (size_t)b * heads + h;
   const float sl2 = scale * kLog2e;  // scores in log2 units
 
-  int row[2], ti[2], ai[2];
-  uint32_t rowh[2];
+  int row[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row[r] = r0 + g + 8 * r;
-    ti[r] = row[r] / ak;
-    ai[r] = (row[r] / spec.K) % spec.A;
-    rowh[r] = (uint32_t)row[r] * kHashRow ^ bhs;
-  }
-  if (tr.begin < tr.end) sm.fetch(0, tr.begin, k + base, v + base, n, H, spec);
-  uint32_t qf[D / 16][4];
-  load_a_frags<D / 16>(qf, q + base, r0, n, H, g, t);
-
+  for (int r = 0; r < 2; ++r) row[r] = r0 + g + 8 * r;
   // running max (log2 units) and per-thread partial denominators of rows g, g + 8
   float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+  zero(acc);
+  mbar_wait(&sm.fixed_full, 0);
 
   for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
-    const int st = it & 1;
-    if (tile + 1 < tr.end) {
-      sm.fetch(st ^ 1, tile + 1, k + base, v + base, n, H, spec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bool partial = tr.partial(tile);
+    const int st = it % kStages;
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    float s[kBlock / 8][4];
+    zero(s);
+    fence_regs(s);
+    wgmma_fence();
+    product_ss<D>(s, sm.fixed[0], sm.ring[st][0]);  // S = Q K^T
+    wgmma_commit();
 
-#pragma unroll
-    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB keys at a time
-      const int c0 = 8 * NB * ch, n0 = tile * kBlock + c0;
-      float s[NB][4];
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      mma_a_tile_t<D, NB>(s, qf, sm.k[st] + c0, lane);
+    const int n0 = tile * kBlock;
+    wgmma_wait<0>();
+    fence_regs(s);
 
-      // scores in log2 units; masked: -1e30, keys past T: -inf (no weight even in a masked row)
-      if (partial) {
+    const StageRows& rows = sm.rows[st];
+    // scores in log2 units; masked: -1e30, keys past T: -inf (no weight even in a masked row)
+    if (tr.partial(tile)) {
+      uint32_t vw[2][2];  // the visibility words of rows g, g + 8, shifted to this thread's first column
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = c0 + 8 * nb + 2 * t + e, j = n0 + 8 * nb + 2 * t + e;
-            const int tj = sm.t[st][c], aj = sm.a[st][c], kj = sm.kind[st][c];
+        for (int w = 0; w < 2; ++w) vw[r][w] = rows.vis[warp * 16 + g + 8 * r][w] >> (2 * t);
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float& x = s[nb][2 * r + e];
-              x = j >= n ? -INFINITY
-                         : ((row[r] < n && visible(ti[r], ai[r], row[r], tj, aj, kj, j, spec)) ? x * sl2 : kMaskNeg);
-            }
-          }
-      } else {
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[nb][i] *= sl2;
-      }
-
-      // online softmax on the fragments: rows g (r = 0) and g + 8 (r = 1)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m[r];
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float mu = mx == -INFINITY ? 0.f : mx;
-        const float alpha = fast_exp2(m[r] - mu);
-        m[r] = mx;
-        float sum = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          s[nb][2 * r] = fast_exp2(s[nb][2 * r] - mu);
-          s[nb][2 * r + 1] = fast_exp2(s[nb][2 * r + 1] - mu);
-          sum += s[nb][2 * r] + s[nb][2 * r + 1];
-        }
-        l[r] = l[r] * alpha + sum;
-#pragma unroll
-        for (int db = 0; db < D / 8; ++db) {
-          acc[db][2 * r] *= alpha;
-          acc[db][2 * r + 1] *= alpha;
-        }
-      }
-      if (use_dropout) {  // dropped weights stay in l, not in O
+      for (int nb = 0; nb < kBlock / 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const uint32_t ch_hash = (uint32_t)(n0 + 2 * t + e) * kHashCol;
+          const bool past = n0 + 8 * nb + 2 * t + e >= n;
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              if (!keep_hashed(rowh[r] ^ (ch_hash + (uint32_t)(8 * nb) * kHashCol), threshold))
-                s[nb][2 * r + e] = 0.f;
+          for (int r = 0; r < 2; ++r) {
+            float& x = s[nb][2 * r + e];
+            x = past ? -INFINITY : ((vw[r][nb / 4] >> ((8 * nb + e) & 31)) & 1u) ? x * sl2 : kMaskNeg;
+          }
         }
-      }
-      mma_p_tile<D, NB>(acc, s, sm.v[st] + c0, lane);
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < kBlock / 8; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nb][i] *= sl2;
     }
-    __syncthreads();  // stage st is consumed before the next fetch overwrites it
+
+    // online softmax on the accumulators: rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v[kBlock / 8];  // reductions as trees: short dependency chains
+#pragma unroll
+      for (int nb = 0; nb < kBlock / 8; ++nb) v[nb] = fmaxf(s[nb][2 * r], s[nb][2 * r + 1]);
+#pragma unroll
+      for (int w = kBlock / 16; w > 0; w /= 2)
+#pragma unroll
+        for (int i = 0; i < w; ++i) v[i] = fmaxf(v[i], v[i + w]);
+      float mx = fmaxf(m[r], v[0]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mu = mx == -INFINITY ? 0.f : mx;
+      const float alpha = fast_exp2(m[r] - mu);
+      m[r] = mx;
+#pragma unroll
+      for (int nb = 0; nb < kBlock / 8; ++nb) {
+        s[nb][2 * r] = fast_exp2(s[nb][2 * r] - mu);
+        s[nb][2 * r + 1] = fast_exp2(s[nb][2 * r + 1] - mu);
+        v[nb] = s[nb][2 * r] + s[nb][2 * r + 1];
+      }
+#pragma unroll
+      for (int w = kBlock / 16; w > 0; w /= 2)
+#pragma unroll
+        for (int i = 0; i < w; ++i) v[i] += v[i + w];
+      l[r] = l[r] * alpha + v[0];
+#pragma unroll
+      for (int db = 0; db < D / 8; ++db) {
+        acc[db][2 * r] *= alpha;
+        acc[db][2 * r + 1] *= alpha;
+      }
+    }
+    if (use_dropout) {  // dropped weights stay in l, not in O
+      uint32_t kw[2][2];  // the keep words of rows g, g + 8, shifted to this thread's first column
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) kw[r][w] = rows.bits[warp * 16 + g + 8 * r][w] >> (2 * t);
+#pragma unroll
+      for (int nb = 0; nb < kBlock / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (!((kw[r][nb / 4] >> ((8 * nb + e) & 31)) & 1u)) s[nb][2 * r + e] = 0.f;
+    }
+
+    uint32_t pa[kBlock / 16][4];
+    a_frags(pa, s);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+    product_rs<D>(acc, pa, sm.ring[st][1]);  // O += P V
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&sm.empty[st]);
   }
 
   float mul[2];
@@ -825,7 +1079,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     mul[r] = l[r] > 0.f ? inv_keep / l[r] : 0.f;
-    if (t == 0 && row[r] < n) lse[((size_t)b * heads + h) * n + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+    if (t == 0 && row[r] < n) lse[bh * n + row[r]] = (m[r] + log2f(l[r])) * kLn2;
   }
   store_rows<D>(o + base, acc, row, mul, n, H, t);
 }
@@ -834,107 +1088,128 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // K4 (bf16), part 1: dQ per 64-query tile, and delta = rowsum(dO . O)
 // ---------------------------------------------------------------------------
 
-template <int D, int NB>
-__global__ void __launch_bounds__(kMmaThreads, dq_min_blocks(D))
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                        const long long* __restrict__ seed_ptr, const int* __restrict__ table,
-                        __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int n, int H, int heads,
-                        MaskSpec spec, float scale, float inv_keep, uint32_t threshold, int use_dropout,
-                        int b_off) {
-  __shared__ __align__(128) KVStages<D> sm;
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, bwd_min_blocks(D))
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                          const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, const uint32_t* __restrict__ keep,
+                          const int* __restrict__ table, __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+                          int n, int H, int heads, MaskSpec spec, float scale, float inv_keep, int use_dropout) {
+  WsSmem<D, 2>& sm = ws_smem_init<D, 2>(32);
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t bh = (size_t)b * heads + h;
+  const int words = (n + 31) / 32;
+  if (threadIdx.x >= kConsumerThreads) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumerThreads + 32) return;
+    const CUtensorMap* fixed[2] = {&q_map, &do_map};
+    produce<Pass::kDq, D, 2>(sm, tr, fixed, &k_map, &v_map, b, h, n, spec, nullptr, nullptr,
+                             use_dropout ? keep + bh * n * words : nullptr, words);
+    return;
+  }
+  setmaxnreg_inc<consumer_regs(bwd_entry_regs(D), kProducerRegs)>();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = tr.tile * kBlock + warp * 16;
   const size_t base = (size_t)b * n * H + (size_t)h * D;
-  const size_t lrow = ((size_t)b * heads + h) * n;  // this (b, h)'s row of lse and delta
-  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
   const int ak = spec.A * spec.K;
   const float sl2 = scale * kLog2e;
   const float dp_mul = scale * inv_keep;
 
-  if (tr.begin < tr.end) sm.fetch(0, tr.begin, k + base, v + base, n, H, spec);
-  uint32_t qf[D / 16][4], df[D / 16][4], of[D / 16][4];
-  load_a_frags<D / 16>(qf, q + base, r0, n, H, g, t);
-  load_a_frags<D / 16>(df, dout + base, r0, n, H, g, t);
-  load_a_frags<D / 16>(of, o + base, r0, n, H, g, t);
-
   int row[2], ti[2], ai[2];
-  uint32_t rowh[2];
   float lse2[2], dlt[2];
+  {
+    uint32_t df[D / 16][4], of[D / 16][4];
+    load_a_frags<D / 16>(df, dout + base, r0, n, H, g, t);
+    load_a_frags<D / 16>(of, o + base, r0, n, H, g, t);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row[r] = r0 + g + 8 * r;
-    ti[r] = row[r] / ak;
-    ai[r] = (row[r] / spec.K) % spec.A;
-    rowh[r] = (uint32_t)row[r] * kHashRow ^ bhs;
-    // delta from the fragments: this thread's columns of row r, summed over the quad
-    float part = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      row[r] = r0 + g + 8 * r;
+      ti[r] = row[r] / ak;
+      ai[r] = (row[r] / spec.K) % spec.A;
+      // delta from the fragments: this thread's columns of row r, summed over the quad
+      float part = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+      for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const uint32_t dw = df[ks][r + 2 * half], ow = of[ks][r + 2 * half];
-        const float2 dd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw));
-        const float2 oo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow));
-        part += dd.x * oo.x + dd.y * oo.y;
-      }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    part += __shfl_xor_sync(0xffffffffu, part, 2);
-    dlt[r] = part * scale;  // delta s
-    lse2[r] = row[r] < n ? lse[lrow + row[r]] * kLog2e : 0.f;
-    if (t == 0 && row[r] < n) delta[lrow + row[r]] = part;
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t dw = df[ks][r + 2 * half], ow = of[ks][r + 2 * half];
+          const float2 dd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dw));
+          const float2 oo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow));
+          part += dd.x * oo.x + dd.y * oo.y;
+        }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dlt[r] = part * scale;  // delta s
+      lse2[r] = row[r] < n ? lse[bh * n + row[r]] * kLog2e : 0.f;
+      if (t == 0 && row[r] < n) delta[bh * n + row[r]] = part;
+    }
   }
 
   float acc[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+  zero(acc);
+  mbar_wait(&sm.fixed_full, 0);
 
   for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
-    const int st = it & 1;
-    if (tile + 1 < tr.end) {
-      sm.fetch(st ^ 1, tile + 1, k + base, v + base, n, H, spec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = it % kStages;
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    float s[kBlock / 8][4], dp[kBlock / 8][4];
+    zero(s);
+    zero(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_ss<D>(s, sm.fixed[0], sm.ring[st][0]);   // S = Q K^T
+    product_ss<D>(dp, sm.fixed[1], sm.ring[st][1]);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    const bool partial = tr.partial(tile);
+    const int n0 = tile * kBlock;
+    const StageRows& rows = sm.rows[st];
+    if (tr.partial(tile)) {  // hidden pairs: score -inf, weight exp2(-inf) = 0
 #pragma unroll
-    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB keys at a time
-      const int c0 = 8 * NB * ch, n0 = tile * kBlock + c0;
-      float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
-      mma_a_tile_t<D, NB>(s, qf, sm.k[st] + c0, lane);
-      mma_a_tile_t<D, NB>(dp, df, sm.v[st] + c0, lane);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < kBlock / 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = c0 + 8 * nb + 2 * t + e, j = n0 + 8 * nb + 2 * t + e;
-          const uint32_t ch_hash = (uint32_t)j * kHashCol;
+          const int c = 8 * nb + 2 * t + e, j = n0 + c;
+          const int tj = rows.t[c], aj = rows.a[c], kj = rows.kind[c];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int i = 2 * r + e;
-            bool vis = true;
-            if (partial)
-              vis = j < n && row[r] < n &&
-                    visible(ti[r], ai[r], row[r], sm.t[st][c], sm.a[st][c], sm.kind[st][c], j, spec);
-            const float p = vis ? fast_exp2(fmaf(s[nb][i], sl2, -lse2[r])) : 0.f;
-            float dps = dp[nb][i] * dp_mul;  // dP s, dropped entries 0
-            if (use_dropout && !keep_hashed(rowh[r] ^ ch_hash, threshold)) dps = 0.f;
-            s[nb][i] = p * (dps - dlt[r]);  // dS = P (dP - delta) s
-          }
+          for (int r = 0; r < 2; ++r)
+            if (!(j < n && row[r] < n && visible(ti[r], ai[r], row[r], tj, aj, kj, j, spec)))
+              s[nb][2 * r + e] = -INFINITY;
         }
-      mma_p_tile<D, NB>(acc, s, sm.k[st] + c0, lane);  // dQ += dS K
     }
-    __syncthreads();
+    uint32_t kw[2][2];  // the keep words of rows g, g + 8, shifted to this thread's first column
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int w = 0; w < 2; ++w) kw[r][w] = rows.bits[warp * 16 + g + 8 * r][w] >> (2 * t);
+#pragma unroll
+    for (int nb = 0; nb < kBlock / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 2 * r + e;
+          const float p = fast_exp2(fmaf(s[nb][i], sl2, -lse2[r]));
+          const bool kept = (kw[r][nb / 4] >> ((8 * nb + e) & 31)) & 1u;
+          const float dps = kept ? dp[nb][i] * dp_mul : 0.f;  // dP s, dropped entries 0
+          s[nb][i] = p * (dps - dlt[r]);                      // dS = P (dP - delta) s
+        }
+    uint32_t da[kBlock / 16][4];
+    a_frags(da, s);
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+    product_rs<D>(acc, da, sm.ring[st][0]);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&sm.empty[st]);
   }
   const float one[2] = {1.f, 1.f};
   store_rows<D>(dq + base, acc, row, one, n, H, t);
@@ -944,127 +1219,116 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 // K4 (bf16), part 2: dK and dV per 64-key tile, over the query tiles that see it
 // ---------------------------------------------------------------------------
 
-// The streamed tiles of the dk/dv kernel: Q and dO, two stages, and each
-// query's lse, delta and (t, a) coordinates.
 template <int D>
-struct QStages {
-  uint16_t q[2][kBlock][D + 8];
-  uint16_t dout[2][kBlock][D + 8];
-  float lse[2][kBlock], delta[2][kBlock];
-  int t[2][kBlock], a[2][kBlock];
-
-  __device__ __forceinline__ void fetch(int stage, int tile, const __nv_bfloat16* __restrict__ qp,
-                                        const __nv_bfloat16* __restrict__ dp, const float* __restrict__ lse_row,
-                                        const float* __restrict__ delta_row, int n, int H, const MaskSpec& s) {
-    const int m0 = tile * kBlock;
-    load_tile_async<D>(q[stage], qp, m0, n, H);
-    load_tile_async<D>(dout[stage], dp, m0, n, H);
-    if (threadIdx.x < kBlock) {
-      const int i = m0 + threadIdx.x;
-      const bool ok = i < n;
-      cp_async4(&lse[stage][threadIdx.x], lse_row + (ok ? i : 0), ok);
-      cp_async4(&delta[stage][threadIdx.x], delta_row + (ok ? i : 0), ok);
-      t[stage][threadIdx.x] = i / (s.A * s.K);
-      a[stage][threadIdx.x] = (i / s.K) % s.A;
-    }
-    cp_async_commit();
-  }
-};
-
-template <int D, int NB>
-__global__ void __launch_bounds__(kMmaThreads, dkdv_min_blocks(D))
-flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const long long* __restrict__ seed_ptr, const int* __restrict__ table,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n, int H,
-                          int heads, MaskSpec spec, float scale, float inv_keep, uint32_t threshold,
-                          int use_dropout, int b_off) {
-  __shared__ __align__(128) QStages<D> sm;
+__global__ void __launch_bounds__(kWsThreads, bwd_min_blocks(D))
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const uint32_t* __restrict__ keep, const int* __restrict__ table,
+                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n, int H, int heads,
+                            MaskSpec spec, float scale, float inv_keep, int use_dropout) {
+  WsSmem<D, 2>& sm = ws_smem_init<D, 2>(32);
   const TileRange tr(table + 5 * blockIdx.y);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t bh = (size_t)b * heads + h;
+  const int words = (n + 31) / 32;
+  if (threadIdx.x >= kConsumerThreads) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumerThreads + 32) return;
+    const CUtensorMap* fixed[2] = {&k_map, &v_map};
+    produce<Pass::kDkdv, D, 2>(sm, tr, fixed, &q_map, &do_map, b, h, n, spec, lse + bh * n, delta + bh * n,
+                               use_dropout ? keep + bh * n * words : nullptr, words);
+    return;
+  }
+  setmaxnreg_inc<consumer_regs(bwd_entry_regs(D), kProducerRegs)>();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = tr.tile * kBlock + warp * 16;  // this warp's 16 keys
   const size_t base = (size_t)b * n * H + (size_t)h * D;
-  const size_t lrow = ((size_t)b * heads + h) * n;
-  const uint32_t bhs = (uint32_t)(b + b_off) * kHashB ^ (uint32_t)h * kHashH ^ (uint32_t)(*seed_ptr);
   const int ak = spec.A * spec.K;
   const float sl2 = scale * kLog2e;
   const float dp_mul = scale * inv_keep;
+  const int kword = warp >= 2;  // the keep word of this warp's keys within the tile's two
 
-  if (tr.begin < tr.end) sm.fetch(0, tr.begin, q + base, dout + base, lse + lrow, delta + lrow, n, H, spec);
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D / 16>(kf, k + base, r0, n, H, g, t);
-  load_a_frags<D / 16>(vf, v + base, r0, n, H, g, t);
-
-  int key[2], tj[2], aj[2], kj[2];
-  uint32_t keyh[2];
+  int key[2], tj[2], aj[2], kj[2], kbit[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     key[r] = r0 + g + 8 * r;
     tj[r] = key[r] / ak;
     aj[r] = (key[r] / spec.K) % spec.A;
     kj[r] = key[r] % spec.K;
-    keyh[r] = (uint32_t)key[r] * kHashCol ^ bhs;
+    kbit[r] = (warp * 16 + g + 8 * r) & 31;
   }
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int db = 0; db < D / 8; ++db)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[db][i] = dv_acc[db][i] = 0.f;
+  zero(dk_acc);
+  zero(dv_acc);
+  mbar_wait(&sm.fixed_full, 0);
 
   for (int tile = tr.begin, it = 0; tile < tr.end; ++tile, ++it) {
-    const int st = it & 1;
-    if (tile + 1 < tr.end) {
-      sm.fetch(st ^ 1, tile + 1, q + base, dout + base, lse + lrow, delta + lrow, n, H, spec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int st = it % kStages;
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    // S^T = K Q^T and dP^T = V dO^T: keys are rows, this tile's queries columns
+    float s[kBlock / 8][4], dp[kBlock / 8][4];
+    zero(s);
+    zero(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_ss<D>(s, sm.fixed[0], sm.ring[st][0]);
+    product_ss<D>(dp, sm.fixed[1], sm.ring[st][1]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    const bool partial = tr.partial(tile);
+    const int m0 = tile * kBlock;
+    const StageRows& rows = sm.rows[st];
+    if (tr.partial(tile)) {  // hidden pairs: score -inf, weight exp2(-inf) = 0
 #pragma unroll
-    for (int ch = 0; ch < kBlock / (8 * NB); ++ch) {  // 8 NB queries at a time
-      // S^T = K Q^T and dP^T = V dO^T: keys are rows, these queries columns
-      const int c0 = 8 * NB * ch, m0 = tile * kBlock + c0;
-      float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
-      mma_a_tile_t<D, NB>(s, kf, sm.q[st] + c0, lane);
-      mma_a_tile_t<D, NB>(dp, vf, sm.dout[st] + c0, lane);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int c = c0 + 8 * nb + 2 * t;
-        const float2 lse_c = *reinterpret_cast<const float2*>(&sm.lse[st][c]);
-        const float2 dlt_c = *reinterpret_cast<const float2*>(&sm.delta[st][c]);
+      for (int nb = 0; nb < kBlock / 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int i = m0 + 8 * nb + 2 * t + e;
-          const float lse2 = (e ? lse_c.y : lse_c.x) * kLog2e, dlt = (e ? dlt_c.y : dlt_c.x) * scale;
-          const uint32_t qh = (uint32_t)i * kHashRow;
+          const int c = 8 * nb + 2 * t + e, i = m0 + c;
+          const int ti = rows.t[c], ai = rows.a[c];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int x = 2 * r + e;
-            bool vis = true;
-            if (partial)
-              vis = i < n && key[r] < n &&
-                    visible(sm.t[st][c + e], sm.a[st][c + e], i, tj[r], aj[r], kj[r], key[r], spec);
-            const float p = vis ? fast_exp2(fmaf(s[nb][x], sl2, -lse2)) : 0.f;
-            float pd = p * inv_keep, dps = dp[nb][x] * dp_mul;
-            if (use_dropout && !keep_hashed(qh ^ keyh[r], threshold)) pd = dps = 0.f;
-            s[nb][x] = pd;               // dropout(P)^T
-            dp[nb][x] = p * (dps - dlt);  // dS^T
-          }
+          for (int r = 0; r < 2; ++r)
+            if (!(i < n && key[r] < n && visible(ti, ai, i, tj[r], aj[r], kj[r], key[r], spec)))
+              s[nb][2 * r + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int nb = 0; nb < kBlock / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * nb + 2 * t + e;
+        const float lse2 = rows.lse[c] * kLog2e, dlt = rows.dlt[c] * scale;
+        const uint32_t qw = rows.bits[c][kword];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 2 * r + e;
+          const float p = fast_exp2(fmaf(s[nb][x], sl2, -lse2));
+          const bool kept = (qw >> kbit[r]) & 1u;
+          const float dps = kept ? dp[nb][x] * dp_mul : 0.f;
+          s[nb][x] = kept ? p * inv_keep : 0.f;  // dropout(P)^T
+          dp[nb][x] = p * (dps - dlt);            // dS^T
         }
       }
-      mma_p_tile<D, NB>(dv_acc, s, sm.dout[st] + c0, lane);  // dV += dropout(P)^T dO
-      mma_p_tile<D, NB>(dk_acc, dp, sm.q[st] + c0, lane);    // dK += dS^T Q
-    }
-    __syncthreads();
+    uint32_t pa[kBlock / 16][4], da[kBlock / 16][4];
+    a_frags(pa, s);
+    a_frags(da, dp);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    product_rs<D>(dv_acc, pa, sm.ring[st][1]);  // dV += dropout(P)^T dO
+    product_rs<D>(dk_acc, da, sm.ring[st][0]);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    release(&sm.empty[st]);
   }
   const float one[2] = {1.f, 1.f};
   store_rows<D>(dk + base, dk_acc, key, one, n, H, t);
@@ -1079,6 +1343,7 @@ struct Args {
   const void *q, *k, *v, *o, *dout, *lse, *seed;
   const int* table;  // the bf16 kernels' tile schedule, [2, ceil(n / kBlock), 5]
   void *out, *lse_out, *dq, *dk, *dv, *delta;
+  void* keep;  // bf16 with dropout: the packed keep words, written by K3 (if not null), read by K4
   int B, n, H, heads;
   MaskSpec spec;
   float scale, inv_keep;
@@ -1116,44 +1381,70 @@ cudaError_t run_bwd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Once per kernel: raises its dynamic shared memory limit (every launch
+// takes the same bytes), and refuses it if it gets fewer registers at launch
+// than its setmaxnreg budget assumes (the consumers' increase would then
+// wait forever).
+template <auto Kernel, size_t Bytes, int EntryRegs>
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, Kernel);
+    if (e == cudaSuccess && attr.numRegs < EntryRegs) e = cudaErrorInvalidConfiguration;
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Bytes);
+    return e;
+  }();
+  return err;
+}
+
 template <int D>
-cudaError_t run_fwd_mma(const Args& a, cudaStream_t stream) {
+cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!encode_tile_map<D>(&qm, a.q, a.B, a.n, a.H) || !encode_tile_map<D>(&km, a.k, a.B, a.n, a.H) ||
+      !encode_tile_map<D>(&vm, a.v, a.B, a.n, a.H))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = ws_smem_bytes<D, 1>();
+  const cudaError_t attr = prepare<flash_fwd_wgmma_kernel<D>, smem, fwd_entry_regs(D)>();
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.heads, (a.n + kBlock - 1) / kBlock);
-  flash_fwd_mma_kernel<D, kFwdNB><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const long long*>(a.seed), a.table,
-      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse_out), a.n, a.H, a.heads, a.spec,
-      a.scale, a.inv_keep, a.threshold, a.use_dropout, a.b_off);
+  flash_fwd_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      qm, km, vm, static_cast<const long long*>(a.seed), a.table, static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.lse_out), static_cast<uint32_t*>(a.keep), a.n, a.H, a.heads, a.spec, a.scale,
+      a.inv_keep, a.threshold, a.use_dropout, a.b_off);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t run_bwd_mma(const Args& a, cudaStream_t stream) {
+cudaError_t run_bwd_wgmma(const Args& a, cudaStream_t stream) {
+  if (a.use_dropout && a.keep == nullptr) return cudaErrorInvalidValue;  // K4 reads K3's keep words
+  CUtensorMap qm, km, vm, dom;
+  if (!encode_tile_map<D>(&qm, a.q, a.B, a.n, a.H) || !encode_tile_map<D>(&km, a.k, a.B, a.n, a.H) ||
+      !encode_tile_map<D>(&vm, a.v, a.B, a.n, a.H) || !encode_tile_map<D>(&dom, a.dout, a.B, a.n, a.H))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = ws_smem_bytes<D, 2>();
+  cudaError_t err = prepare<flash_bwd_dq_wgmma_kernel<D>, smem, bwd_entry_regs(D)>();
+  if (err == cudaSuccess) err = prepare<flash_bwd_dkdv_wgmma_kernel<D>, smem, bwd_entry_regs(D)>();
+  if (err != cudaSuccess) return err;
   const int tiles = (a.n + kBlock - 1) / kBlock;
   const dim3 grid(a.B * a.heads, tiles);
-  flash_bwd_dq_mma_kernel<D, kDqNB><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.o),
-      static_cast<const __nv_bfloat16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const long long*>(a.seed), a.table, static_cast<__nv_bfloat16*>(a.dq),
-      static_cast<float*>(a.delta), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
-      a.use_dropout, a.b_off);
-  const cudaError_t err = cudaGetLastError();
+  const uint32_t* keep = static_cast<const uint32_t*>(a.keep);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      qm, km, vm, dom, static_cast<const __nv_bfloat16*>(a.o), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), keep, a.table, static_cast<__nv_bfloat16*>(a.dq),
+      static_cast<float*>(a.delta), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.use_dropout);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma_kernel<D, kDkdvNB><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const long long*>(a.seed), a.table + 5 * tiles, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.n, a.H, a.heads, a.spec, a.scale, a.inv_keep, a.threshold,
-      a.use_dropout, a.b_off);
+  flash_bwd_dkdv_wgmma_kernel<D><<<grid, kWsThreads, smem, stream>>>(
+      qm, km, vm, dom, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), keep,
+      a.table + 5 * tiles, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.n, a.H,
+      a.heads, a.spec, a.scale, a.inv_keep, a.use_dropout);
   return cudaGetLastError();
 }
 
-// bf16 on the tensor cores, f32 on the CUDA cores
+// bf16 on the tensor cores (wgmma), f32 on the CUDA cores
 template <int D>
 cudaError_t run(bool backward, bool bf16, const Args& a, cudaStream_t stream) {
-  if (bf16) return backward ? run_bwd_mma<D>(a, stream) : run_fwd_mma<D>(a, stream);
+  if (bf16) return backward ? run_bwd_wgmma<D>(a, stream) : run_fwd_wgmma<D>(a, stream);
   return backward ? run_bwd<float, D>(a, stream) : run_fwd<float, D>(a, stream);
 }
 
@@ -1202,9 +1493,13 @@ bool bad_shape(int B, int n, int H, int heads, int head_dim, int A, int K) {
 // threshold = min(int((1 - dropout_p) * 2^32),
 // 2^32 - 1). table: for bf16, the int32 [2, ceil(n / 64), 5] tile schedule
 // of ops/flash_attention.py:tile_table for this mask and n, on the device;
-// unused (may be null) for float32. Returns the cudaError_t of the launch.
+// unused (may be null) for float32. keep: for bf16 with dropout, null or
+// the uint32 [B, heads, n, ceil(n / 32)] packed keep mask (bit j % 32 of
+// word j / 32 of row i: key j of query i kept), of which the kernel writes
+// the words of the tile pairs it walks; unused for float32. Returns the
+// cudaError_t of the launch.
 extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, const void* seed,
-                                  const void* table, void* out, void* lse, int B, int n, int H,
+                                  const void* table, void* out, void* lse, void* keep, int B, int n, int H,
                                   int heads, int head_dim, int A, int K, int state_index, int own,
                                   int has_window, int window, int b_offset, float dropout_p,
                                   unsigned threshold, int is_bf16, void* stream) {
@@ -1219,17 +1514,20 @@ extern "C" int ctrl_sim_flash_fwd(const void* q, const void* k, const void* v, c
   a.table = static_cast<const int*>(table);
   a.out = out;
   a.lse_out = lse;
+  a.keep = keep;
   return (int)dispatch(false, is_bf16 != 0, a, static_cast<cudaStream_t>(stream));
 }
 
 // K4. As K3, plus o and dout [B, n, H] (the forward's output and its
-// gradient), lse from K3; writes dq, dk, dv [B, n, H] in the inputs' type
-// and uses delta [B, heads, n] float32 as scratch. Two launches on one
+// gradient), lse from K3, and for bf16 with dropout the keep mask K3 wrote
+// (required: the bf16 kernels read the keep bits and do not hash; the f32
+// kernels hash and ignore it); writes dq, dk, dv [B, n, H] in the inputs'
+// type and uses delta [B, heads, n] float32 as scratch. Two launches on one
 // stream; returns the first error.
 extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const void* lse, const void* seed, const void* table,
-                                  void* dq, void* dk, void* dv, void* delta, int B, int n, int H,
-                                  int heads, int head_dim, int A, int K, int state_index, int own,
+                                  const void* keep, void* dq, void* dk, void* dv, void* delta, int B, int n,
+                                  int H, int heads, int head_dim, int A, int K, int state_index, int own,
                                   int has_window, int window, int b_offset, float dropout_p,
                                   unsigned threshold, int is_bf16, void* stream) {
   if (bad_shape(B, n, H, heads, head_dim, A, K)) return (int)cudaErrorInvalidValue;
@@ -1244,6 +1542,7 @@ extern "C" int ctrl_sim_flash_bwd(const void* q, const void* k, const void* v, c
   a.seed = seed;
   a.b_off = b_offset;
   a.table = static_cast<const int*>(table);
+  a.keep = const_cast<void*>(keep);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;

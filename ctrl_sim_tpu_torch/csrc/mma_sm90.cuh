@@ -1,10 +1,11 @@
-// The tensor-core building blocks of the port's bf16 kernels on Hopper
-// (sm_90a): cp.async copies into shared memory, ldmatrix, mma.sync
-// m16n8k16 with bf16 operands and fp32 accumulators, and the fragment
-// loads and products that the training flash attention (flash_attention.cu)
-// and the decode attention (decode_mma.cuh) share. Fragment layout of
-// m16n8k16: thread (g = lane / 4, t = lane % 4) holds rows g and g + 8,
-// columns 2t and 2t + 1 of each 8-wide block of the C (and A) operands.
+// The tensor-core building blocks of the port's decode attention on Hopper
+// (decode_mma.cuh, sm_90a): cp.async copies into shared memory, ldmatrix,
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulators; and the
+// fragment loads, exp2, bf16 packing and row stores that the training flash
+// attention's wgmma kernels (flash_attention.cu, wgmma_sm90.cuh) share with
+// it. Fragment layout of m16n8k16 (and, per warp, of wgmma's m64nN):
+// thread (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
+// 2t + 1 of each 8-wide block of the C (and A) operands.
 
 #pragma once
 
@@ -85,45 +86,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const __nv_bf
     a[ks][1] = rb < n ? ldg_u32(x + (size_t)rb * H + c) : 0u;
     a[ks][2] = ra < n ? ldg_u32(x + (size_t)ra * H + c + 8) : 0u;
     a[ks][3] = rb < n ? ldg_u32(x + (size_t)rb * H + c + 8) : 0u;
-  }
-}
-
-// acc[nb] += A . tile^T over the head width for the 8 x NB rows of the tile
-// at tile[0]: the S = Q K^T pattern, with the tile's rows as the product's
-// columns (ldmatrix without .trans).
-template <int D, int NB>
-__device__ __forceinline__ void mma_a_tile_t(float (&acc)[NB][4], const uint32_t (&a)[D / 16][4],
-                                             const uint16_t (*tile)[D + 8], int lane) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-    for (int p = 0; p < NB / 2; ++p) {
-      uint32_t b[4];
-      ldsm_x4(b, &tile[16 * p + (lane & 7) + ((lane >> 4) << 3)][16 * ks + (((lane >> 3) & 1) << 3)]);
-      mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
-      mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc[db] += P . tile for P the 16 x 8NB fp32 accumulators s (rounded to
-// bf16 A fragments in registers) and the 8NB rows at tile[0] as the
-// reduction (ldmatrix .trans): the O = P V pattern.
-template <int D, int NB>
-__device__ __forceinline__ void mma_p_tile(float (&acc)[D / 8][4], const float (&s)[NB][4],
-                                           const uint16_t (*tile)[D + 8], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, &tile[16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3)][16 * dp + ((lane >> 4) << 3)]);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-    }
   }
 }
 

@@ -6,8 +6,8 @@ Port of ``ctrl_sim_tpu/ops/flash_attention.py``, whose TPU kernels are
 ``pl.pallas_call(_bwd_kernel)`` (K4): multi-head attention of the full
 training sequence (T = steps x agents x token types) with the visibility
 predicate of ``ops/masks.py`` evaluated from token indices, never stored,
-and attention dropout keyed by position through a murmur3 hash, so the
-backward regenerates the same keep mask with any tiling. On a CUDA tensor
+and attention dropout keyed by position through a murmur3 hash, so any
+tiling gives the same keep mask. On a CUDA tensor
 the wrappers launch the hand-written Hopper kernels of
 ``csrc/flash_attention.cu`` (built by nvcc, bound with ctypes) or raise:
 ``flash_mha_fwd`` the forward K3, ``flash_mha_bwd`` the backward K4 (two
@@ -16,17 +16,20 @@ kernels, no atomics), and ``flash_mha`` joins them in a
 version ``flash_mha_reference``, which the CPU tests hold against the JAX
 kernel and ``chip_smoke.py`` holds the CUDA kernels against on the card.
 
-bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32 accumulators,
-64-row tiles streamed through a ``cp.async`` ring); f32 keeps CUDA-core
+bf16 runs on Hopper's tensor cores (``wgmma`` m64nNk16, fp32 accumulators),
+fed by TMA loads of 64-row tiles through a 3-stage ring, with a producer
+and a consumer warpgroup a block (in the forward the producers also hash
+the keep bits and build the partial tiles' mask words); f32 keeps CUDA-core
 kernels, which hold the 1e-4 agreement that TF32 could not. The bf16
 kernels walk the schedule of ``tile_table``: for each 64-row tile, the
 tiles of the other side with a visible pair, of which the fully visible
 run skips the mask predicate; heaviest tiles first. What bounds them on an
 H100 is not the tensor-core rate (0.044 ms forward, 0.109 ms backward at
 the train step's shape) but per-element work on the CUDA cores: an exp per
-admitted element and pass (K3 one pass, K4 two), the murmur3 keep bit per
-element and pass with dropout on, and the shared-memory reads of the
-streamed tiles; ``csrc/flash_attention.cu`` has the numbers.
+admitted element and pass (K3 one pass, K4 two), and with dropout the
+murmur3 keep bit, which only the forward hashes: with dropout on and a
+gradient wanted it writes the bits packed (``pack_keep_bits``'s layout)
+and the backward reads them; ``csrc/flash_attention.cu`` has the numbers.
 
 Semantics kept from the TPU kernels: scores s * q.k in fp32 with s =
 1/sqrt(d), -1e30 on masked scores (keys past T take no weight),
@@ -119,6 +122,18 @@ def tile_table(spec: MaskSpec, seq_len: int, tile: int = TILE) -> Tensor:
     return torch.tensor(sides, dtype=torch.int32)
 
 
+def walked_keep_words(spec: MaskSpec, seq_len: int, tile: int = TILE) -> Tensor:
+    """Boolean [T, ceil(T / 32)]: the packed keep words that the bf16
+    forward kernel writes and both backward kernels read, those of the
+    (query tile, key tile) pairs that ``tile_table`` walks; every visible
+    pair's bit lies in one of them."""
+    words, per = -(-seq_len // 32), tile // 32
+    out = torch.zeros((seq_len, words), dtype=torch.bool)
+    for t, begin, _, _, end in tile_table(spec, seq_len, tile)[0].tolist():
+        out[t * tile:(t + 1) * tile, begin * per:min(end * per, words)] = True
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _device_tile_table(spec: MaskSpec, seq_len: int, device: torch.device) -> Tensor:
     return tile_table(spec, seq_len).to(device)
@@ -135,6 +150,23 @@ def _mul32(x: Tensor, c: int) -> Tensor:
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _U32
+
+
+def pack_keep_bits(keep: Tensor) -> Tensor:
+    """Boolean keep masks [..., T] (the last axis the keys) packed into
+    uint32 words [..., ceil(T / 32)]: bit j % 32 of word j / 32 is key j,
+    the layout in which the bf16 forward kernel saves its keep bits."""
+    T = keep.shape[-1]
+    words = -(-T // 32)
+    bits = torch.nn.functional.pad(keep.to(torch.int64), (0, 32 * words - T))
+    bits = bits.reshape(*keep.shape[:-1], words, 32) << torch.arange(32, device=keep.device)
+    return bits.sum(dim=-1).to(torch.uint32)
+
+
+def unpack_keep_bits(words: Tensor, seq_len: int) -> Tensor:
+    """The inverse of ``pack_keep_bits``: boolean [..., seq_len]."""
+    bits = (words.to(torch.int64)[..., None] >> torch.arange(32, device=words.device)) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :seq_len].bool()
 
 
 def dropout_keep_reference(seed, b, h, rows: Tensor, cols: Tensor, keep_prob: float) -> Tensor:
@@ -164,13 +196,15 @@ def flash_mha_reference(
     dropout_p: float = 0.0,
     seed=None,  # int or int64 tensor [1]; only read when dropout_p > 0
     batch_offset: int = 0,  # added to the batch index in the dropout hash
+    keep: Tensor | None = None,  # packed keep bits [B, heads, T, ceil(T / 32)] to use instead of the hash
 ) -> tuple[Tensor, Tensor]:
     """The plain PyTorch version of kernels K3/K4: dense masked attention in
     fp32 einsums. Returns (out [B, T, D] in q's dtype, lse [B, heads, T]
     fp32); differentiable by autograd, which gives K4's gradients. Row b's
     dropout mask is that of batch index ``batch_offset + b``: a rank
     holding rows [o, o + B) of a global batch passes o, and its masks are
-    those of the single-process launch."""
+    those of the single-process launch. With ``keep`` (the forward's saved
+    bits, ``dropout_keep_bits``) the mask is read from it and not hashed."""
     B, T, D = q.shape
     d = D // num_heads
     idx = torch.arange(T, device=q.device)
@@ -184,15 +218,33 @@ def flash_mha_reference(
     lse = (m + torch.log(l))[..., 0]
     p = e / l
     if dropout_p > 0.0:
-        seed = 0 if seed is None else seed
-        heads = torch.arange(num_heads, device=q.device)[:, None, None]
-        keep = torch.stack([
-            dropout_keep_reference(seed, batch_offset + b, heads, idx[:, None], idx[None, :], 1.0 - dropout_p)
-            for b in range(B)
-        ])
-        p = torch.where(keep, p / (1.0 - dropout_p), 0.0)
+        if keep is None:
+            kept = dropout_keep_mask(seed, batch_offset, B, num_heads, T, 1.0 - dropout_p, q.device)
+        else:
+            kept = unpack_keep_bits(keep, T)
+        p = torch.where(kept, p / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
     return out.reshape(B, T, D).to(q.dtype), lse
+
+
+def dropout_keep_mask(seed, batch_offset: int, B: int, num_heads: int, T: int, keep_prob: float,
+                      device) -> Tensor:
+    """The boolean keep mask [B, heads, T, T] of a launch of B rows whose
+    first row is ``batch_offset`` of the global batch (the hash's batch
+    index)."""
+    seed = 0 if seed is None else seed
+    idx = torch.arange(T, device=device)
+    heads = torch.arange(num_heads, device=device)[:, None, None]
+    return torch.stack([dropout_keep_reference(seed, batch_offset + b, heads, idx[:, None], idx[None, :], keep_prob)
+                        for b in range(B)])
+
+
+def dropout_keep_bits(seed, batch_offset: int, B: int, num_heads: int, T: int, keep_prob: float,
+                      device) -> Tensor:
+    """``dropout_keep_mask`` packed as the forward saves it: uint32
+    [B, heads, T, ceil(T / 32)], one row at a time."""
+    return torch.stack([pack_keep_bits(dropout_keep_mask(seed, batch_offset + b, 1, num_heads, T, keep_prob,
+                                                         device)[0]) for b in range(B)])
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, num_heads: int) -> None:
@@ -227,10 +279,10 @@ def _kernels():
     tail = [ctypes.c_float, ctypes.c_uint, i32, ptr]
     fwd = lib.ctrl_sim_flash_fwd
     fwd.restype = i32
-    fwd.argtypes = [ptr] * 7 + shape + tail  # q, k, v, seed, table, out, lse
+    fwd.argtypes = [ptr] * 8 + shape + tail  # q, k, v, seed, table, out, lse, keep
     bwd = lib.ctrl_sim_flash_bwd
     bwd.restype = i32
-    bwd.argtypes = [ptr] * 12 + shape + tail  # q, k, v, o, do, lse, seed, table, dq, dk, dv, delta
+    bwd.argtypes = [ptr] * 13 + shape + tail  # q, k, v, o, do, lse, seed, table, keep, dq, dk, dv, delta
     return fwd, bwd
 
 
@@ -267,15 +319,25 @@ def _require_cuda(*tensors: Tensor) -> None:
 
 def flash_mha_fwd(
     q: Tensor, k: Tensor, v: Tensor, spec: MaskSpec, num_heads: int,
-    dropout_p: float = 0.0, seed=None, batch_offset: int = 0,
-) -> tuple[Tensor, Tensor]:
-    """Kernel K3: (out [B, T, D], lse [B, heads, T] fp32). CUDA tensors go
-    through the hand-written kernel (every launch adds one to
+    dropout_p: float = 0.0, seed=None, batch_offset: int = 0, keep_bits: bool = False,
+) -> tuple[Tensor, Tensor, Tensor | None]:
+    """Kernel K3: (out [B, T, D], lse [B, heads, T] fp32, keep). CUDA
+    tensors go through the hand-written kernel (every launch adds one to
     ``flash_mha_fwd.launches``); CPU tensors through the plain version.
-    ``batch_offset`` is added to the batch index in the dropout hash."""
+    ``batch_offset`` is added to the batch index in the dropout hash. With
+    ``keep_bits`` and dropout on, ``keep`` holds the keep bits packed as
+    ``pack_keep_bits`` lays them out, uint32 [B, heads, T, ceil(T / 32)],
+    for ``flash_mha_bwd``: the bf16 kernel writes the words of the tile
+    pairs it walks (the others are left unwritten, and no backward reads
+    them), the plain version every word. Else, and for the f32 kernel,
+    whose backward hashes again, ``keep`` is None."""
     _check(q, k, v, num_heads)
+    save = keep_bits and dropout_p > 0.0
     if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)
+        out, lse = flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)
+        B, T, _ = q.shape
+        keep = dropout_keep_bits(seed, batch_offset, B, num_heads, T, 1.0 - dropout_p, q.device) if save else None
+        return out, lse, keep
     _require_cuda(q, k, v)
     seed_t = _seed_tensor(seed, q.device)
     B, T, D = q.shape
@@ -284,37 +346,65 @@ def flash_mha_fwd(
     q, k, v = (pad_heads(x, num_heads, width) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    keep = None
+    if save and q.dtype == torch.bfloat16:
+        keep = torch.empty((B, num_heads, T, -(-T // 32)), dtype=torch.uint32, device=q.device)
     fwd, _ = _kernels()
     with torch.cuda.device(q.device):
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec),
-                  out.data_ptr(), lse.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p, batch_offset))
+                  out.data_ptr(), lse.data_ptr(), None if keep is None else keep.data_ptr(),
+                  *_launch_args(q, spec, num_heads, d, dropout_p, batch_offset))
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError_t {err}")
     flash_mha_fwd.launches += 1
-    return unpad_heads(out, num_heads, d), lse
+    return unpad_heads(out, num_heads, d), lse, keep
 
 
 flash_mha_fwd.launches = 0
 
 
+def _check_keep(keep: Tensor | None, q: Tensor, num_heads: int, dropout_p: float) -> None:
+    """The bf16 backward kernels read the forward's keep bits when dropout
+    is on; the f32 ones hash and take none."""
+    if dropout_p <= 0.0:
+        return
+    if q.dtype != torch.bfloat16:
+        if keep is not None:
+            raise ValueError("the f32 backward kernels hash the keep bits themselves: pass keep=None")
+        return
+    B, T, _ = q.shape
+    shape = (B, num_heads, T, -(-T // 32))
+    if keep is None:
+        raise ValueError("the bf16 backward kernels read the forward's keep bits: pass the keep that "
+                         "flash_mha_fwd(..., keep_bits=True) returned")
+    if keep.dtype != torch.uint32 or tuple(keep.shape) != shape or keep.device != q.device:
+        raise ValueError(f"keep must be uint32 {shape} on {q.device}, got {keep.dtype} {tuple(keep.shape)} "
+                         f"on {keep.device}")
+    _require_cuda(keep)
+
+
 def flash_mha_bwd(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, dout: Tensor, lse: Tensor,
     spec: MaskSpec, num_heads: int, dropout_p: float = 0.0, seed=None, batch_offset: int = 0,
+    keep: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Kernel K4: (dq, dk, dv) of ``out = flash_mha(q, k, v)`` for the
     output gradient ``dout``, recomputing the weights from ``lse``. CUDA
     tensors go through the hand-written kernels (every launch of the pair
-    adds one to ``flash_mha_bwd.launches``); CPU tensors through autograd of
-    the plain version."""
+    adds one to ``flash_mha_bwd.launches``); in bf16 with dropout on they
+    read the keep bits ``keep`` that ``flash_mha_fwd(..., keep_bits=True)``
+    saved and hash nothing. CPU tensors go through autograd of the plain
+    version, which reads ``keep`` if given and hashes otherwise."""
     _check(q, k, v, num_heads)
     if q.device.type == "cpu":
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            o, _ = flash_mha_reference(*leaves, spec, num_heads, dropout_p, seed, batch_offset)
+            o, _ = flash_mha_reference(*leaves, spec, num_heads, dropout_p, seed, batch_offset, keep)
             return torch.autograd.grad(o, leaves, dout.to(o.dtype))
     _require_cuda(q, k, v, out, dout, lse)
     if dout.dtype != q.dtype or out.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("out and dout must have q's dtype, lse float32")
+    _check_keep(keep, q, num_heads, dropout_p)
     seed_t = _seed_tensor(seed, q.device)
     B, T, D = q.shape
     d = D // num_heads
@@ -322,10 +412,11 @@ def flash_mha_bwd(
     q, k, v, out, dout = (pad_heads(x, num_heads, width) for x in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, num_heads, T), dtype=torch.float32, device=q.device)
+    keep_ptr = keep.data_ptr() if keep is not None and dropout_p > 0.0 else None
     _, bwd = _kernels()
     with torch.cuda.device(q.device):
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                  lse.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec), dq.data_ptr(), dk.data_ptr(),
+                  lse.data_ptr(), seed_t.data_ptr(), _table_ptr(q, spec), keep_ptr, dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), delta.data_ptr(), *_launch_args(q, spec, num_heads, d, dropout_p, batch_offset))
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError_t {err}")
@@ -337,24 +428,25 @@ flash_mha_bwd.launches = 0
 
 
 class _FlashMHA(torch.autograd.Function):
-    """K3 forward, K4 backward (the JAX custom VJP)."""
+    """K3 forward, K4 backward (the JAX custom VJP). With dropout on, the
+    forward saves its keep bits for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, spec, num_heads, dropout_p, batch_offset):
-        out, lse = flash_mha_fwd(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)
-        ctx.save_for_backward(q, k, v, out, lse, seed)
+    def forward(ctx, q, k, v, seed, spec, num_heads, dropout_p, batch_offset, keep_bits):
+        out, lse, keep = flash_mha_fwd(q, k, v, spec, num_heads, dropout_p, seed, batch_offset, keep_bits)
+        ctx.save_for_backward(q, k, v, out, lse, seed, keep)
         ctx.args = (spec, num_heads, dropout_p, batch_offset)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v, out, lse, seed = ctx.saved_tensors
+        q, k, v, out, lse, seed, keep = ctx.saved_tensors
         spec, num_heads, dropout_p, batch_offset = ctx.args
         grad = grad.to(q.dtype).contiguous()
         if grad.data_ptr() % 16:  # a view at an odd offset: the kernels load 16 bytes at a time
             grad = grad.clone()
-        dq, dk, dv = flash_mha_bwd(q, k, v, out, grad, lse, spec, num_heads, dropout_p, seed, batch_offset)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = flash_mha_bwd(q, k, v, out, grad, lse, spec, num_heads, dropout_p, seed, batch_offset, keep)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_mha(
@@ -368,12 +460,16 @@ def flash_mha(
     batch_offset: int = 0,  # added to the batch index in the dropout hash
 ) -> Tensor:
     """Multi-head attention under the multi-agent causal mask, O(T) memory
-    on the card. Differentiable: the forward is K3 and the backward K4 on
-    CUDA tensors; on CPU tensors both are the plain version."""
+    on the card, plus in bf16 with dropout on and a gradient wanted the
+    saved keep bits (T^2 / 8 bytes a row and head). Differentiable: the
+    forward is K3 and the backward K4 on CUDA tensors; on CPU tensors both
+    are the plain version."""
     _check(q, k, v, num_heads)
     if q.device.type == "cpu":
         return flash_mha_reference(q, k, v, spec, num_heads, dropout_p, seed, batch_offset)[0]
+    # the keep bits are written and kept only for a backward to come
+    keep_bits = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     return _FlashMHA.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), _seed_tensor(seed, q.device), spec, num_heads,
-        float(dropout_p), int(batch_offset),
+        float(dropout_p), int(batch_offset), keep_bits,
     )

@@ -23,13 +23,13 @@ def test_sources_and_headers_exist():
     for source in build.SOURCES:
         assert (build.CSRC_DIR / source).is_file()
     headers = {p.name for p in build.CSRC_DIR.glob("*.cuh")}
-    assert {"mma_sm90.cuh", "decode_mma.cuh"} <= headers
+    assert {"mma_sm90.cuh", "decode_mma.cuh", "wgmma_sm90.cuh"} <= headers
     for source in build.SOURCES:
         text = (build.CSRC_DIR / source).read_text()
         assert any(f'#include "{h}"' in text for h in headers), source
 
 
-@pytest.mark.parametrize("header", ["mma_sm90.cuh", "decode_mma.cuh"])
+@pytest.mark.parametrize("header", ["mma_sm90.cuh", "decode_mma.cuh", "wgmma_sm90.cuh"])
 def test_library_path_follows_included_headers(csrc, header):
     before = {s: build.library_path(s) for s in build.SOURCES}
     assert before == {s: build.library_path(s) for s in build.SOURCES}  # stable while nothing changes

@@ -6,7 +6,11 @@ dropout keep bits and the multi-agent causal mask bit for bit, the forward
 seed (the keep masks are identical, so the same bounds hold). The
 ``*_family_layouts`` tests take the same checks to the other families'
 layouts: the state token second (DT, ``state_index`` 1) and one token type
-(trajeglish, K = 1). All fp32 on the CPU; the CUDA kernels are held
+(trajeglish, K = 1). The keep bits that the bf16 forward kernel saves for
+the backward: the plain version packs them as the kernel does, equal bit
+for bit to the JAX ``_dropout_keep`` packed the same way, its backward fed
+them equals its backward that hashes, and the words the kernels walk hold
+every visible pair's bit. All fp32 on the CPU; the CUDA kernels are held
 against this plain version on the card by ``tests/test_torch_kernels.py``."""
 
 import jax
@@ -131,10 +135,13 @@ def test_wrappers_on_cpu_use_plain_version():
     spec = tfa.MaskSpec(3, 3, 0, False, None)
     q, k, v, g = (torch.tensor(x) for x in _inputs(36, 32))
     launches = (tfa.flash_mha_fwd.launches, tfa.flash_mha_bwd.launches)
-    out, lse = tfa.flash_mha_fwd(q, k, v, spec, 2, 0.1, 5)
+    out, lse, keep = tfa.flash_mha_fwd(q, k, v, spec, 2, 0.1, 5, keep_bits=True)
     want, want_lse = tfa.flash_mha_reference(q, k, v, spec, 2, 0.1, 5)
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
-    dq, dk, dv = tfa.flash_mha_bwd(q, k, v, out, g, lse, spec, 2, 0.1, 5)
+    assert torch.equal(keep, tfa.dropout_keep_bits(5, 0, 2, 2, 36, 0.9, "cpu"))
+    assert tfa.flash_mha_fwd(q, k, v, spec, 2, 0.1, 5)[2] is None  # no bits unless asked for
+    assert tfa.flash_mha_fwd(q, k, v, spec, 2, 0.0, 5, keep_bits=True)[2] is None  # nor without dropout
+    dq, dk, dv = tfa.flash_mha_bwd(q, k, v, out, g, lse, spec, 2, 0.1, 5, keep=keep)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     o = tfa.flash_mha(*leaves, spec, 2, 0.1, 5)
     for a, b in zip((dq, dk, dv), torch.autograd.grad(o, leaves, g)):
@@ -218,3 +225,85 @@ def _check_tile_table(tile, steps, agents, types, state_index, own, window):
             first_own_step += step
         _, begin, full_begin, full_end, _ = next(e for e in table[0].tolist() if e[0] == q_tile)
         assert begin == full_begin == 0 and full_end == first_own_step // tile
+
+
+def _jax_keep_bits(seed, b, heads, T, keep_prob):
+    """The JAX ``_dropout_keep`` of batch index b, packed as the bf16
+    forward kernel saves it (bit j % 32 of word j / 32): uint32 [heads, T, W]."""
+    rows, cols = jnp.arange(T, dtype=jnp.int32)[:, None], jnp.arange(T, dtype=jnp.int32)[None, :]
+    words = -(-T // 32)
+    out = []
+    for h in range(heads):
+        keep = np.asarray(jfa._dropout_keep(jnp.uint32(seed), jnp.int32(b), h, rows, cols, keep_prob))
+        keep = np.pad(keep, ((0, 0), (0, 32 * words - T)))
+        out.append(np.packbits(keep, axis=-1, bitorder="little").view("<u4"))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("batch_offset", [0, 8])
+@pytest.mark.parametrize("seed", [0, 987654321, 2**32 - 1])
+def test_plain_keep_bits_match_jax_packed(seed, batch_offset):
+    """flash_mha_fwd's saved keep bits (the plain version's, here): the
+    JAX keep mask of every (batch index, head, query, key) packed, bit for
+    bit, over a T whose last word is partial, with and without the batch
+    offset of a data-parallel rank."""
+    B, heads, spec = 2, 2, tfa.MaskSpec(3, 3, 0, False, None)
+    T = 5 * 9
+    q, k, v = (torch.tensor(x) for x in _inputs(T, heads * 4, seed=3)[:3])
+    _, _, keep = tfa.flash_mha_fwd(q, k, v, spec, heads, 0.1, seed, batch_offset, keep_bits=True)
+    assert keep.dtype == torch.uint32 and tuple(keep.shape) == (B, heads, T, 2)
+    for b in range(B):
+        np.testing.assert_array_equal(keep[b].numpy(), _jax_keep_bits(seed, batch_offset + b, heads, T, 0.9))
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 100])
+def test_keep_bits_pack_round_trip(T):
+    keep = torch.as_tensor(np.random.default_rng(T).random((2, 3, T, T)) < 0.7)
+    words = tfa.pack_keep_bits(keep)
+    assert words.dtype == torch.uint32 and tuple(words.shape) == (2, 3, T, -(-T // 32))
+    assert torch.equal(tfa.unpack_keep_bits(words, T), keep)
+
+
+@pytest.mark.parametrize("batch_offset", [0, 3])
+@pytest.mark.parametrize("A,K,state_index,steps,nh,hd,strict,window",
+                         [layout[:2] + (0,) + layout[2:7] for layout in LAYOUTS[:4]] + [f[:8] for f in FAMILY_LAYOUTS[:2]])
+def test_plain_backward_with_saved_bits_matches_hashing(A, K, state_index, steps, nh, hd, strict, window, batch_offset):
+    """The plain backward fed the forward's saved keep bits gives the
+    gradients of the plain backward that hashes them, exactly."""
+    T, D = A * K * steps, nh * hd
+    q, k, v, g = (torch.tensor(x) for x in _inputs(T, D, seed=T + D))
+    spec = tfa.MaskSpec(A, K, state_index, strict, window)
+    out, lse, keep = tfa.flash_mha_fwd(q, k, v, spec, nh, 0.1, 42, batch_offset, keep_bits=True)
+    saved = tfa.flash_mha_bwd(q, k, v, out, g, lse, spec, nh, 0.1, 42, batch_offset, keep=keep)
+    hashed = tfa.flash_mha_bwd(q, k, v, out, g, lse, spec, nh, 0.1, 42, batch_offset)
+    for a, b in zip(saved, hashed):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "steps,agents,types,state_index,own,window",
+    [  # the layouts of the tile-table tests, the families' and the train step's
+        (8, 24, 3, 0, False, None), (5, 23, 3, 0, False, None), (6, 4, 3, 0, True, None), (7, 3, 3, 0, False, 3),
+        (6, 4, 2, 0, False, None), (32, 24, 3, 0, False, None), (5, 23, 3, 1, True, None), (6, 4, 2, 1, False, 3),
+        (8, 24, 1, 0, False, None), (32, 24, 1, 0, False, None), (32, 24, 2, 0, False, None),
+    ],
+)
+def test_walked_keep_words_hold_every_visible_pair(steps, agents, types, state_index, own, window):
+    """The bf16 forward kernel writes only the keep words of the tile
+    pairs it walks, and the backward kernels read only those: every visible
+    (query, key) pair's bit must lie in one, and every walked word must be
+    one a tile pair of the schedule holds."""
+    T = steps * agents * types
+    spec = tfa.MaskSpec(agents, types, state_index, own, window)
+    walked = tfa.walked_keep_words(spec, T)
+    words = -(-T // 32)
+    assert walked.shape == (T, words)
+    idx = torch.arange(T)
+    vis = tfa.block_mask(idx[:, None], idx[None, :], T, spec)
+    needed = torch.nn.functional.pad(vis, (0, 32 * words - T)).reshape(T, words, 32).any(dim=-1)
+    assert not (needed & ~walked).any()
+    tiles = -(-T // tfa.TILE)
+    pair_hit = torch.nn.functional.pad(vis, (0, tiles * tfa.TILE - T, 0, tiles * tfa.TILE - T)).reshape(
+        tiles, tfa.TILE, tiles, tfa.TILE).any(dim=3).any(dim=1)
+    word_tile = torch.arange(words) * 32 // tfa.TILE
+    assert torch.equal(walked, pair_hit[idx // tfa.TILE][:, word_tile])

@@ -87,8 +87,8 @@ def test_k3_k4_plain_matches_jax(d, dropout_p):
 
     spec = tfa.MaskSpec(A, K, 0, False, None)
     tq, tk, tv, tg = map(torch.tensor, (q, k, v, g))
-    out, lse = tfa.flash_mha_fwd(tq, tk, tv, spec, HEADS, dropout_p, 987654321)
-    grads = tfa.flash_mha_bwd(tq, tk, tv, out, tg, lse, spec, HEADS, dropout_p, 987654321)
+    out, lse, keep = tfa.flash_mha_fwd(tq, tk, tv, spec, HEADS, dropout_p, 987654321, keep_bits=True)
+    grads = tfa.flash_mha_bwd(tq, tk, tv, out, tg, lse, spec, HEADS, dropout_p, 987654321, keep=keep)
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=2e-5, rtol=0)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=0)
     for name, a, b in zip("qkv", grads, jgrads):

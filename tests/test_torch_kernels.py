@@ -323,8 +323,11 @@ def test_flash_attention_dispatches_by_dtype(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         x = [t.to(dtype) for t in (q, k, v, do)]
         f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches
-        out, lse = flash_attention.flash_mha_fwd(*x[:3], spec, 8, 0.1, torch.tensor([3], device=cuda))
-        grads = flash_attention.flash_mha_bwd(*x[:3], out, x[3], lse, spec, 8, 0.1, torch.tensor([3], device=cuda))
+        out, lse, keep = flash_attention.flash_mha_fwd(*x[:3], spec, 8, 0.1, torch.tensor([3], device=cuda),
+                                                       keep_bits=True)
+        assert (keep is None) == (dtype == torch.float32)  # the f32 backward hashes again
+        grads = flash_attention.flash_mha_bwd(*x[:3], out, x[3], lse, spec, 8, 0.1, torch.tensor([3], device=cuda),
+                                              keep=keep)
         assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
         assert out.dtype == dtype and all(g.dtype == dtype for g in grads)
         outs[dtype] = (out.float(), lse, *(g.float() for g in grads))
@@ -339,9 +342,14 @@ def _check_flash(cuda, B, steps, A, K, heads, d, own, window, dtype, dropout_p, 
     q, k, v, do = _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, steps * A + d)
     seed = torch.tensor([1234567], device=cuda)
     f0, b0 = flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches
-    out, lse = flash_attention.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed)
-    dq, dk, dv = flash_attention.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed)
+    out, lse, keep = flash_attention.flash_mha_fwd(q, k, v, spec, heads, dropout_p, seed, keep_bits=True)
+    dq, dk, dv = flash_attention.flash_mha_bwd(q, k, v, out, do, lse, spec, heads, dropout_p, seed, keep=keep)
     assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    if keep is not None:  # bf16 with dropout: the saved bits are the hash's on every word the kernels walk
+        T = q.shape[1]
+        walked = flash_attention.walked_keep_words(spec, T).to(cuda)
+        want = flash_attention.dropout_keep_bits(seed, 0, B, heads, T, 1.0 - dropout_p, cuda)
+        assert torch.equal(keep.view(torch.int32)[:, :, walked], want.view(torch.int32)[:, :, walked])
     leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
     want, want_lse = flash_attention.flash_mha_reference(*leaves, spec, heads, dropout_p, seed)
     grads = torch.autograd.grad(want, leaves, do.float())
@@ -363,6 +371,34 @@ def test_flash_attention_autograd_uses_both_kernels(cuda):
     grads = torch.autograd.grad(out, (q, k, v), do)
     assert (flash_attention.flash_mha_fwd.launches, flash_attention.flash_mha_bwd.launches) == (f0 + 1, b0 + 1)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_keeps_bits_only_for_a_backward(cuda, dtype):
+    """Through ``flash_mha`` with dropout: a launch that a backward will
+    follow saves the keep bits in bf16 (the f32 kernels hash again) and its
+    gradients match the plain version's; a launch under no_grad keeps
+    nothing, and the bf16 backward refuses to run without the bits."""
+    spec = flash_attention.MaskSpec(24, 3, 0, False, None)
+    q, k, v, do = _flash_inputs(cuda, 2, 4, 24, 3, 8, 32, dtype, 5)
+    seed = torch.tensor([77], device=cuda)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention.flash_mha(*leaves, spec, 8, 0.1, seed)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    want = flash_attention.flash_mha_reference(*ref_leaves, spec, 8, 0.1, seed)[0]
+    for got, ref in zip(grads, torch.autograd.grad(want, ref_leaves, do.float())):
+        assert (got.float() - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+    with torch.no_grad():
+        before = torch.cuda.memory_allocated()
+        kept = flash_attention.flash_mha(*leaves, spec, 8, 0.1, seed)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() - before == kept.numel() * kept.element_size()
+    if dtype == torch.bfloat16:
+        out, lse, keep = flash_attention.flash_mha_fwd(q, k, v, spec, 8, 0.1, seed)
+        assert keep is None
+        with pytest.raises(ValueError, match="keep bits"):
+            flash_attention.flash_mha_bwd(q, k, v, out, do, lse, spec, 8, 0.1, seed)
 
 
 def test_flash_attention_kernels_reject_non_contiguous_or_misaligned(cuda):
