@@ -12,9 +12,9 @@ code is 0 only when every phase passed:
    in the checkout (one nvcc per source, all started together), with
    ptxas's registers and spills per kernel, and per kernel the tensor-core
    and TMA instructions in the SASS of each library (``cuobjdump``): every
-   instance of the bf16 K1 and K2 kernels must have HMMA (``mma.sync``),
-   and every instance of the bf16 K3 and K4 kernels HGMMA (``wgmma``) and
-   UTMALDG (TMA loads) and no HMMA;
+   instance of the bf16 K1-K4 kernels must have HGMMA (``wgmma``) and
+   UTMALDG (TMA loads), and no HMMA (``mma.sync``) but in K2's keys design,
+   whose P V runs on ``mma.sync``;
 3. kernels K1 (decode attention) and K2 (decode attention over the int8
    cache) against their plain PyTorch versions on the card: the rollout's
    shapes (256 lanes, Q = 32 and 16 queries, N = 1536 keys, H = 256 = 8
@@ -33,6 +33,9 @@ code is 0 only when every phase passed:
    over 1024, trajeglish 32 over 512, the 3-pass decode 16 over 1536, and
    its t - 1 action pass at t = 0, whose rows see no key (compared on
    every row: both versions give such a row the uniform average of V);
+   at the head widths 8 and 48 (padded to 16 and 64) the kernels' raw
+   launch (the wrapper's pre-scale, padding and mask cast done once) and
+   SDPA are timed in a CUDA graph, beside the eager wrapper;
 4. kernels K3/K4 (training flash attention, forward and backward; bf16 on
    the tensor cores, f32 on CUDA cores) against the plain version on the
    card: output, lse, dq, dk and dv at the train step's shape (B = 16,
@@ -247,16 +250,29 @@ IMPLEMENTATION = ("bf16: tensor cores, wgmma m64nNk16 with fp32 accumulators fed
                   "mbarrier ring), a producer and a consumer warpgroup a block (setmaxnreg); in the forward the "
                   "producers also hash the dropout keep bits and build the partial tiles' mask words, saved for "
                   "the backward, which reads them and hashes nothing; f32: CUDA cores")
-DECODE_IMPLEMENTATION = ("bf16: tensor cores, mma.sync m16n8k16 with fp32 accumulators; a warp per (lane, head, "
-                         "16 or 32 query rows) streams all its keys in 32-key chunks through its own cp.async "
-                         "ring of swizzled tiles, 4 heads of a lane a block; f32: CUDA cores")
+DECODE_IMPLEMENTATION = ("bf16: tensor cores, wgmma m64nNk16 with fp32 accumulators fed by TMA; a persistent grid "
+                         "of blocks of 4 heads (2 at d = 64), each item a lane's 4 heads and all its query rows "
+                         "(Q <= 64) in one 64-row tile, so the cache is read once; a producer warpgroup streams "
+                         "64-key chunks through an mbarrier ring and packs the mask words, a consumer warpgroup "
+                         "a head (setmaxnreg); f32: CUDA cores")
+DECODE_Q8_IMPLEMENTATION = (
+    "bf16 at Q <= 32 (the rollout's passes, the 3-pass decode): the keys design, S^T = K Q^T by wgmma "
+    "m64n16k16 / m64n32k16 with the int8 K widened exactly in registers into the A operand, each warp 16 keys of "
+    "a 64-key chunk with its own running max (moved only when a score lies 8 above it), P transposed by "
+    "movmatrix and P V on mma.sync m16n8k16 with V widened in registers, the four warps merged at the item's "
+    "end; the producer's warp loads the int8 tiles by TMA and the scales by bulk copy, the mask is packed once "
+    "a launch into shared memory; bf16 at Q > 32: K1's rows design, with one int8 TMA tile a tensor for the "
+    "block's heads and the scales by bulk copy, each consumer warpgroup widening its head's columns to bf16 in "
+    "shared memory; both: k_scale on the scores, v_scale on the weights before their bf16 rounding; f32: CUDA "
+    "cores")
 # the bf16 kernels of each source, and the SASS instructions each instance must have (and not have):
-# HMMA is mma.sync, HGMMA wgmma, UTMALDG a TMA load
+# HMMA is mma.sync, HGMMA wgmma, UTMALDG a TMA load; K2's keys design runs its P V on mma.sync
 TENSOR_CORE_KERNELS = {
-    "decode_attention.cu": (("decode_attention_mma_kernel",), ("HMMA",), ()),
-    "decode_attention_q8.cu": (("decode_attention_q8_mma_kernel",), ("HMMA",), ()),
-    "flash_attention.cu": (("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
-                           ("HGMMA", "UTMALDG"), ("HMMA",)),
+    "decode_attention.cu": ((("decode_attention_wgmma_kernel",), ("HGMMA", "UTMALDG"), ("HMMA",)),),
+    "decode_attention_q8.cu": ((("decode_attention_q8_wgmma_kernel",), ("HGMMA", "UTMALDG"), ("HMMA",)),
+                               (("decode_attention_q8_keys_kernel",), ("HGMMA", "UTMALDG", "HMMA"), ())),
+    "flash_attention.cu": ((("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
+                            ("HGMMA", "UTMALDG"), ("HMMA",)),),
 }
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 EXP_PER_SM_CLOCK = 16  # MUFU ex2 a clock on an SM (Hopper)
@@ -339,16 +355,17 @@ def _check_sass(counts_by_source: dict, head_dims) -> list[str]:
     """The bf16 kernel instances whose SASS lacks an instruction that
     ``TENSOR_CORE_KERNELS`` requires, or has one it forbids."""
     bad = []
-    for source, (names, need, forbid) in TENSOR_CORE_KERNELS.items():
+    for source, groups in TENSOR_CORE_KERNELS.items():
         counts = counts_by_source[source]
-        for name in names:
-            for d in head_dims:  # every instance of the head width (and of the row tiles)
-                found = [c for k, c in counts.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
-                if not found:
-                    bad.append(f"{name}<{d}>: not built")
-                for c in found:
-                    bad += [f"{name}<{d}>: no {op}" for op in need if not c[op]]
-                    bad += [f"{name}<{d}>: {c[op]} {op}" for op in forbid if c[op]]
+        for names, need, forbid in groups:
+            for name in names:
+                for d in head_dims:  # every instance of the head width (and of the row tiles)
+                    found = [c for k, c in counts.items() if k == f"{name}<{d}>" or k.startswith(f"{name}<{d}, ")]
+                    if not found:
+                        bad.append(f"{name}<{d}>: not built")
+                    for c in found:
+                        bad += [f"{name}<{d}>: no {op}" for op in need if not c[op]]
+                        bad += [f"{name}<{d}>: {c[op]} {op}" for op in forbid if c[op]]
     return bad
 
 
@@ -404,10 +421,10 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False, graph=False
     """K1 (or, with ``int8``, K2 over a cache quantized from unit normals by
     ``quantize_rows``) against its plain version on one input; returns the
     measured row. The library yardstick for K2 runs over the K/V
-    dequantized to q's dtype beforehand. With ``graph`` (K1 at a width it
-    is built for), ``ms`` and ``library_ms`` time the kernel's raw launch
-    and SDPA in a CUDA graph (``_graph_ms``), and ``wrapper_ms`` the eager
-    wrapper as the other rows do."""
+    dequantized to q's dtype beforehand. With ``graph``, ``ms`` and
+    ``library_ms`` time the kernel's raw launch and SDPA in a CUDA graph
+    (``_raw_graph_times``), and ``wrapper_ms`` the eager wrapper as the
+    other rows do."""
     import torch
     import torch.nn.functional as F
 
@@ -458,41 +475,60 @@ def _attention_case(B, Q, N, H, heads, dtype, mask, gen, int8=False, graph=False
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
     if graph:
-        row.update(_k1_graph_times(q, k, v, mask, heads, got, q4, k4, v4, bool_mask))
+        row.update(_raw_graph_times(args, heads, got, q4, k4, v4, bool_mask, int8))
     return row
 
 
-def _k1_graph_times(q, k, v, mask, heads, got, q4, k4, v4, bool_mask) -> dict:
-    """K1's raw launch (the wrapper's pre-scale and mask cast done once,
-    outside) and SDPA, each timed in a CUDA graph; the raw launch's output
-    must equal the wrapper's."""
+def _kernel_ms_text(row: dict) -> str:
+    """A decode row's kernel time: the eager wrapper's, or the raw launch's
+    in a CUDA graph beside the eager wrapper's."""
+    if "wrapper_ms" in row:
+        return f"{row['ms']:.4f} ms (raw launch in a CUDA graph; eager wrapper {row['wrapper_ms']:.4f} ms)"
+    return f"{row['ms']:.4f} ms"
+
+
+def _raw_graph_times(args, heads, got, q4, k4, v4, bool_mask, int8=False) -> dict:
+    """K1's (or, with ``int8``, K2's) raw launch and SDPA, each timed in a
+    CUDA graph: the wrapper's pre-scale, head padding and mask cast done
+    once, outside the graph. The raw launch's output must equal the
+    wrapper's."""
     import torch
     import torch.nn.functional as F
 
     from ctrl_sim_tpu_torch.ops import attention
-    from ctrl_sim_tpu_torch.ops.heads import KERNEL_HEAD_DIMS
+    from ctrl_sim_tpu_torch.ops.heads import kernel_head_dim, pad_heads, unpad_heads
 
+    q, k, v, mask = args[0], args[1], args[2], args[-2]
+    scales = tuple(args[3:5]) if int8 else ()
     B, Q, H = q.shape
     N = k.shape[1]
-    if H // heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the raw launch takes no padded head width (d = {H // heads})")
-    fn = attention._kernel("decode_attention.cu", "ctrl_sim_decode_attention", 5)
-    qs = attention._prescale(q, heads).contiguous()
-    mask_i8 = torch.nn.functional.pad(mask.to(torch.int8), (0, N % 2)).contiguous()
+    d = H // heads
+    width = kernel_head_dim(d)
+    if int8:
+        fn = attention._kernel("decode_attention_q8.cu", "ctrl_sim_decode_attention_q8", 7)
+        wrapper = attention.cached_decode_attention_q8
+    else:
+        fn = attention._kernel("decode_attention.cu", "ctrl_sim_decode_attention", 5)
+        wrapper = attention.cached_decode_attention
+    qs = pad_heads(attention._prescale(q, heads), heads, width).contiguous()
+    kp, vp = (pad_heads(x, heads, width).contiguous() for x in (k, v))
+    mask_i8 = F.pad(mask.to(torch.int8), (0, N % 2)).contiguous()
     out = torch.empty_like(qs)
+    pointers = [t.data_ptr() for t in (qs, kp, vp, *scales, mask_i8, out)]
 
     def launch():
-        err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i8.data_ptr(), out.data_ptr(), B, Q, N, H, heads,
-                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        err = fn(*pointers, B, Q, N, heads * width, heads, int(q.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {err}")
 
     ms = _graph_ms(launch)
-    if not torch.equal(out, got):
-        raise AssertionError("K1's raw launch differs from its wrapper's output")
-    return {"wrapper_ms": _median_ms(lambda: attention.cached_decode_attention(q, k, v, mask, heads)), "ms": ms,
+    if not torch.equal(unpad_heads(out, heads, d), got):
+        raise AssertionError(f"{'K2' if int8 else 'K1'}'s raw launch differs from its wrapper's output")
+    return {"wrapper_ms": _median_ms(lambda: wrapper(*args)), "ms": ms,
             "library_ms": _graph_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask)),
-            "timed": "ms and library_ms: 10 calls in a CUDA graph, device only; wrapper_ms: eager wrapper calls"}
+            "timed": "ms and library_ms: 10 calls in a CUDA graph, device only (ms: the raw launch on inputs "
+                     "pre-scaled and head-padded once); wrapper_ms: eager wrapper calls"}
 
 
 def _quantize_rows_on_card(gen) -> str:
@@ -2852,9 +2888,8 @@ def main() -> int:
     bad = _check_sass(sass, KERNEL_HEAD_DIMS)
     if bad:
         raise AssertionError(f"bf16 kernels without their tensor-core or TMA instructions: {bad}")
-    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HMMA in every bf16 K1-K2 "
-           f"instance; HGMMA and UTMALDG, and no HMMA, in every bf16 K3-K4 instance (d = "
-           f"{', '.join(map(str, KERNEL_HEAD_DIMS))})")
+    _phase("build", t0, f"{len(reports)} of {len(build.SOURCES)} sources compiled; HGMMA and UTMALDG in every bf16 "
+           f"K1-K4 instance, and no HMMA but in K2's keys design (d = {', '.join(map(str, KERNEL_HEAD_DIMS))})")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2874,10 +2909,10 @@ def main() -> int:
             raise AssertionError("expected fully masked rows in the t = 0 mask")
         cases[f"masked rows {dtype}"] = _attention_case(LANES, *dead.shape, 256, 8, dtype, dead, gen)
         for d in WIDTH_CASES:  # head widths with no kernel instance: each head padded to the next
-            cases[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen)
+            cases[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen, graph=True)
     for name, row in cases.items():
         print(f"  K1 {name}: {row['shape']} err {row['max_abs_err']:.3g} "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"kernel {_kernel_ms_text(row)}, plain {row['plain_ms']:.4f} ms, "
               f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     _phase("k1-vs-plain", t0, f"{len(cases)} cases within 2e-2 (bf16) / 1e-4 (f32)")
 
@@ -2889,10 +2924,10 @@ def main() -> int:
         q8[f"narrow {dtype}"] = _attention_case(64, 12, 384, 64, 4, dtype, narrow, gen, int8=True)
         q8[f"masked rows {dtype}"] = _attention_case(LANES, *dead.shape, 256, 8, dtype, dead, gen, int8=True)
         for d in WIDTH_CASES:
-            q8[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen, int8=True)
+            q8[f"d={d} {dtype}"] = _attention_case(64, 12, 384, 4 * d, 4, dtype, narrow, gen, int8=True, graph=True)
     for name, row in q8.items():
         print(f"  K2 {name}: {row['shape']} err {row['max_abs_err']:.3g} "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (SDPA over "
+              f"kernel {_kernel_ms_text(row)}, plain {row['plain_ms']:.4f} ms, library (SDPA over "
               f"dequantized K/V) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     detail = _quantize_rows_on_card(gen)
     _phase("k2-vs-plain", t0, f"{len(q8)} cases within 2e-2 (bf16) / 1e-4 (f32); {detail}")
@@ -3163,8 +3198,7 @@ def main() -> int:
             "rollout_s": rollout_s["rollout-int8"],
             "family_shapes": decode_family_rows(fam_k2, {"dt": "dt-int8"}),
             "head_width_cases": width_rows(q8),
-            "implementation": DECODE_IMPLEMENTATION + "; int8 chunks widened to bf16 in shared memory, "
-                              "k_scale on the scores, v_scale on the weights before their bf16 rounding",
+            "implementation": DECODE_Q8_IMPLEMENTATION,
         },
         {
             "name": "flash_mha_fwd",

@@ -18,10 +18,11 @@
 // against 4 * B * Q * N * H = 12.9 GFLOP (Q = 32), 0.013 ms at the bf16
 // tensor-core rate: the work is memory-bound.
 //
-// bf16: tensor cores (decode_attention_mma_kernel<D, MT>), the body in
-// decode_mma.cuh, shared with K2: mma.sync m16n8k16 over K/V chunks that
-// each warp streams through a cp.async ring of bf16 shared-memory tiles;
-// its design notes are there.
+// bf16: tensor cores (decode_attention_wgmma_kernel<D, G>), the body in
+// decode_mma.cuh, shared with K2: a persistent grid of warp-specialised
+// blocks, each item one lane, G heads and all its query rows (Q <= 64), the
+// 64-key chunks of K and V streamed by TMA through an mbarrier ring, S =
+// Q K^T and O += P V on wgmma; its design notes are there.
 //
 // f32: CUDA cores (decode_attention_kernel<D>), kept for the 1e-4 agreement
 // of the f32 path, which TF32 tensor cores cannot hold:
@@ -226,17 +227,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D, int MT>
-__global__ void __launch_bounds__(kDecThreads, decode_min_blocks(D, false))
-decode_attention_mma_kernel(const DecodeArgs a) {
-  decode_attention_mma<D, MT, false>(a);
+template <int D, int G>
+__global__ void __launch_bounds__(dec_threads(G), dec_min_blocks(G))
+decode_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map, const DecodeArgs a) {
+  decode_attention_ws<D, G, false, kDecRows>(&q_map, &k_map, &v_map, a);
 }
 
-// MT = 2 m16 row tiles a block when Q > 16
+template <int D, int G>
+cudaError_t launch_bf16_heads(const DecodeArgs& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;  // Q in 16-row parts (rotated per head), K and V in 64-key chunks
+  if (!encode_tile_map<D>(&qm, a.q, a.B, a.Q, a.H, 16) || !encode_tile_map<D>(&km, a.k, a.B, a.N, a.H) ||
+      !encode_tile_map<D>(&vm, a.v, a.B, a.N, a.H))
+    return cudaErrorInvalidValue;
+  return launch_decode<D, G, false, kDecRows>(decode_attention_wgmma_kernel<D, G>, qm, km, vm, a, stream);
+}
+
+// G heads a block, as dec_heads chooses
 template <int D>
-cudaError_t launch_bf16(const DecodeArgs& a, int B, cudaStream_t stream) {
-  return a.Q > 16 ? launch_decode_mma<D, 2, false>(decode_attention_mma_kernel<D, 2>, a, B, stream)
-                  : launch_decode_mma<D, 1, false>(decode_attention_mma_kernel<D, 1>, a, B, stream);
+cudaError_t launch_bf16(const DecodeArgs& a, cudaStream_t stream) {
+  const int G = dec_heads(D, a.heads);
+  if constexpr (dec_max_heads(D) == 4)
+    if (G == 4) return launch_bf16_heads<D, 4>(a, stream);
+  return G == 2 ? launch_bf16_heads<D, 2>(a, stream) : launch_bf16_heads<D, 1>(a, stream);
 }
 
 template <int D>
@@ -244,8 +257,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
                    int Q, int N, int H, int num_heads, int is_bf16, cudaStream_t stream) {
   if (!is_bf16) return launch_f32<D>(q, k, v, mask, out, B, Q, N, H, num_heads, stream);
   const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, nullptr, nullptr,
-                     static_cast<const int8_t*>(mask), static_cast<__nv_bfloat16*>(out), Q, N, H, num_heads};
-  return launch_bf16<D>(a, B, stream);
+                     static_cast<const int8_t*>(mask), static_cast<__nv_bfloat16*>(out), B, Q, N, H, num_heads};
+  return launch_bf16<D>(a, stream);
 }
 
 }  // namespace

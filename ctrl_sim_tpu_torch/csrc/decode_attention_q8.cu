@@ -30,13 +30,23 @@
 // bytes of scales per launch (0.061 ms at 3.35 TB/s), half of K1's bf16
 // cache, against 4 * B * Q * N * H = 12.9 GFLOP (Q = 32): memory-bound.
 //
-// bf16: tensor cores (decode_attention_q8_mma_kernel<D, MT>), the body in
-// decode_mma.cuh, shared with K1: each warp streams int8 K/V chunks and
-// their scales through a cp.async ring, widens each landed chunk to bf16 in
-// shared memory (exact), and runs K1's mma.sync products on it; k_scale
-// multiplies each fp32 score column, v_scale the weights before they are
-// rounded to bf16. No int8 mma: it would need q quantized to int8, which is
-// not the function the TPU kernel computes.
+// bf16: tensor cores, the body in decode_mma.cuh (shared with K1, whose
+// design notes are there), in one of two designs by the query rows:
+// - Q <= 32 (the rollout's two passes, the 3-pass decode):
+//   decode_attention_q8_keys_kernel<D, G, NQ>, the keys design. S^T = K Q^T
+//   by wgmma, with the int8 K widened exactly in registers into its A
+//   operand; each warp of a consumer warpgroup takes 16 keys of every
+//   64-key chunk, with a running max of its own; P V on mma.sync, V widened
+//   in registers. The producer's warp streams the int8 tiles by TMA and the
+//   scales by bulk copy (cp.async for a ragged chunk); the mask is packed
+//   once a launch into shared memory.
+// - Q > 32 (DT's 48 rows): decode_attention_q8_wgmma_kernel<D, G>, K1's
+//   rows design over one int8 TMA tile a tensor for the block's G heads;
+//   each consumer warpgroup widens its head's columns to bf16 tiles in
+//   shared memory while its P V runs.
+// k_scale multiplies each fp32 score, v_scale the weights before they are
+// rounded to bf16. No int8 product: it would need q quantized to int8,
+// which is not the function the TPU kernel computes.
 //
 // f32: CUDA cores (decode_attention_q8_kernel<D>), K1's f32 design with
 // int8 tiles:
@@ -269,17 +279,40 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D, int MT>
-__global__ void __launch_bounds__(kDecThreads, decode_min_blocks(D, true))
-decode_attention_q8_mma_kernel(const DecodeArgs a) {
-  decode_attention_mma<D, MT, true>(a);
+template <int D, int G>
+__global__ void __launch_bounds__(dec_threads(G), dec_min_blocks(G))
+decode_attention_q8_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map, const DecodeArgs a) {
+  decode_attention_ws<D, G, true, kDecRows>(&q_map, &k_map, &v_map, a);
 }
 
-// MT = 2 m16 row tiles a block when Q > 16
+template <int D, int G, int NQ>
+__global__ void __launch_bounds__(dec_threads(G), dec_min_blocks(G))
+decode_attention_q8_keys_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map, const DecodeArgs a) {
+  decode_attention_ws<D, G, true, NQ>(&q_map, &k_map, &v_map, a);
+}
+
+template <int D, int G>
+cudaError_t launch_bf16_heads(const DecodeArgs& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;  // Q in 16-row parts; K and V int8, G heads' columns a tile
+  if (!encode_tile_map<D>(&qm, a.q, a.B, a.Q, a.H, 16) || !encode_i8_tile_map(&km, a.k, a.B, a.N, a.H, G * D) ||
+      !encode_i8_tile_map(&vm, a.v, a.B, a.N, a.H, G * D))
+    return cudaErrorInvalidValue;
+  if (a.Q <= 16 && dec_smem_bytes<D, G, true, 16>(a.N) <= kDecSmemLimit)
+    return launch_decode<D, G, true, 16>(decode_attention_q8_keys_kernel<D, G, 16>, qm, km, vm, a, stream);
+  if (a.Q <= 32 && dec_smem_bytes<D, G, true, 32>(a.N) <= kDecSmemLimit)
+    return launch_decode<D, G, true, 32>(decode_attention_q8_keys_kernel<D, G, 32>, qm, km, vm, a, stream);
+  return launch_decode<D, G, true, kDecRows>(decode_attention_q8_wgmma_kernel<D, G>, qm, km, vm, a, stream);
+}
+
+// G heads a block, as dec_heads chooses
 template <int D>
-cudaError_t launch_bf16(const DecodeArgs& a, int B, cudaStream_t stream) {
-  return a.Q > 16 ? launch_decode_mma<D, 2, true>(decode_attention_q8_mma_kernel<D, 2>, a, B, stream)
-                  : launch_decode_mma<D, 1, true>(decode_attention_q8_mma_kernel<D, 1>, a, B, stream);
+cudaError_t launch_bf16(const DecodeArgs& a, cudaStream_t stream) {
+  const int G = dec_heads(D, a.heads);
+  if constexpr (dec_max_heads(D) == 4)
+    if (G == 4) return launch_bf16_heads<D, 4>(a, stream);
+  return G == 2 ? launch_bf16_heads<D, 2>(a, stream) : launch_bf16_heads<D, 1>(a, stream);
 }
 
 template <int D>
@@ -289,8 +322,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* k_sc
   if (!is_bf16) return launch_f32<D>(q, k, v, k_scale, v_scale, mask, out, B, Q, N, H, num_heads, stream);
   const DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const float*>(k_scale),
                      static_cast<const float*>(v_scale), static_cast<const int8_t*>(mask),
-                     static_cast<__nv_bfloat16*>(out), Q, N, H, num_heads};
-  return launch_bf16<D>(a, B, stream);
+                     static_cast<__nv_bfloat16*>(out), B, Q, N, H, num_heads};
+  return launch_bf16<D>(a, stream);
 }
 
 }  // namespace

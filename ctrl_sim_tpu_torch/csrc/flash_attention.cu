@@ -890,49 +890,6 @@ __device__ __forceinline__ void produce(WsSmem<D, NF>& sm, const TileRange& tr, 
     mbar_wait(&sm.empty[it % kStages], (it / kStages) & 1);
 }
 
-// The consumer warps release a stage: each warp's reads of it are done
-// (its products waited on), and its lane 0 arrives.
-__device__ __forceinline__ void release(uint64_t* empty) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
-}
-
-// The scores of 16 columns (two 8-column blocks of the accumulators) as
-// the bf16 A operand of the next product.
-__device__ __forceinline__ void a_frags(uint32_t (&a)[kBlock / 16][4], const float (&s)[kBlock / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-// acc += A B for A the 64 x 64 operand in registers and B the 64-row tile
-// (rows the reduction, transposed by the instruction); issued.
-template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 8][4], uint32_t (&a)[kBlock / 16][4], const void* tile) {
-  const uint64_t desc = wgmma_desc<D>(tile);
-#pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_rs_t<D>(acc, a[kk], desc + kk * wgmma_row_step<D>());
-}
-
-// s = A B^T over the head width, A and B 64-row tiles (K-major); issued.
-template <int D>
-__device__ __forceinline__ void product_ss(float (&s)[kBlock / 8][4], const void* a, const void* b) {
-  const uint64_t da = wgmma_desc<D>(a), db = wgmma_desc<D>(b);
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    wgmma_ss<kBlock>(s, da + ks * kWgmmaKStep, db + ks * kWgmmaKStep, ks > 0);
-}
-
-template <int R>
-__device__ __forceinline__ void zero(float (&x)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
-}
-
 // ---------------------------------------------------------------------------
 // K3 (bf16): forward
 // ---------------------------------------------------------------------------

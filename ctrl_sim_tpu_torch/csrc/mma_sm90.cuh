@@ -1,11 +1,11 @@
-// The tensor-core building blocks of the port's decode attention on Hopper
-// (decode_mma.cuh, sm_90a): cp.async copies into shared memory, ldmatrix,
-// mma.sync m16n8k16 with bf16 operands and fp32 accumulators; and the
-// fragment loads, exp2, bf16 packing and row stores that the training flash
-// attention's wgmma kernels (flash_attention.cu, wgmma_sm90.cuh) share with
-// it. Fragment layout of m16n8k16 (and, per warp, of wgmma's m64nN):
-// thread (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
-// 2t + 1 of each 8-wide block of the C (and A) operands.
+// The register-level helpers of the port's attention kernels on Hopper
+// (sm_90a) that are not wgmma's own (wgmma_sm90.cuh): shared-memory
+// addresses, 4-byte cp.async copies, exp2, bf16 packing, mma.sync m16n8k16
+// and movmatrix (the int8 decode's P V at Q <= 16), fragment loads from
+// device memory and row stores. Fragment layout (mma.sync's m16n8k16, and
+// per warp wgmma's m64nN): thread (g = lane / 4, t = lane % 4) holds rows g
+// and g + 8, columns 2t and 2t + 1 of each 8-wide block of the C (and A)
+// operands.
 
 #pragma once
 
@@ -19,41 +19,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 (or 4) bytes from src to shared dst; zeros where !pred (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
+// 4 bytes from src to shared dst; zeros where !pred (src is then not read)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(pred ? 4 : 0)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a b for a 16x16 bf16 A fragment and a 16x8 bf16 B fragment (b0, b1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -65,6 +35,24 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a b for a 16 x 16 bf16 A fragment and a 16 x 8 bf16 B fragment (b0, b1)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The transpose of an 8 x 8 bf16 matrix held by the warp in the C layout
+// (thread g, t: row g, columns 2t, 2t + 1): thread g, t then holds row g of
+// the transpose, that is column g, rows 2t and 2t + 1 of the original.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {

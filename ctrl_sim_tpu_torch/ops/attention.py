@@ -8,7 +8,8 @@ the packed H. ``cached_decode_attention`` (K1) takes K/V in q's dtype;
 scales [B, N], as ``quantize_rows`` writes them. On a CUDA tensor each
 wrapper launches its hand-written Hopper kernel (``csrc/decode_attention.cu``,
 ``csrc/decode_attention_q8.cu``; built by nvcc, bound with ctypes) or raises:
-in bf16 the tensor-core kernel (``mma.sync``, the body shared in
+in bf16 the tensor-core kernel (``wgmma`` fed by TMA, warp-specialised, one
+pass over the cache for all of a lane's query rows; the body shared in
 ``csrc/decode_mma.cuh``), in f32 a CUDA-core kernel, for the 1e-4 agreement
 that TF32 could not hold;
 on a CPU tensor it runs its plain PyTorch version (``*_reference``), which
@@ -117,13 +118,13 @@ def _launch(fn, q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_heads: int, s
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads K/V 16 bytes at a time)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels load K/V by TMA and 16-byte copies)")
     B, Q, H = q.shape
     N = k.shape[1]
     d = H // num_heads
     width = kernel_head_dim(d)
     mask_i8 = mask.to(torch.int8).contiguous()
-    if N % 2:  # the kernels read a mask row two bytes at a time: pad it to an even length
+    if N % 2:  # the kernels take mask rows of even length: pad
         mask_i8 = torch.nn.functional.pad(mask_i8, (0, 1))
     qs = pad_heads(_prescale(q, num_heads), num_heads, width).contiguous()
     k, v = pad_heads(k, num_heads, width), pad_heads(v, num_heads, width)

@@ -43,7 +43,9 @@ def cuda():
      # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
      (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8),
      # head widths 8 and 48, with no kernel instance: each head zero-padded to 16 and 64
-     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4)],
+     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4),
+     # 64 rows in one tile, and 65 (a second tile of one row); fewer keys than a 64-key chunk
+     (3, 64, 1536, 256, 8), (2, 65, 700, 256, 8), (3, 48, 40, 256, 8), (2, 20, 17, 64, 4)],
 )
 def test_decode_attention_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N)
@@ -108,7 +110,11 @@ def _q8_inputs(gen, cuda, B, Q, N, H, dtype):
      # the families' caches: IL (N = 1024) and trajeglish (N = 512); DT's 48 rows over 1536 keys
      (4, 32, 1024, 256, 8), (4, 32, 512, 256, 8), (4, 48, 1536, 256, 8),
      # head widths 8 and 48, with no kernel instance: each head zero-padded to 16 and 64
-     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4)],
+     (4, 12, 384, 32, 4), (4, 32, 384, 192, 4),
+     # 64 rows in one tile, and 65 (a second tile of one row); fewer keys than a 64-key chunk
+     (3, 64, 1536, 256, 8), (2, 65, 700, 256, 8), (3, 48, 40, 256, 8), (2, 20, 17, 64, 4),
+     # the keys design (Q <= 32) at one head a block (3 heads), and at d = 64 over 16 rows
+     (2, 16, 130, 96, 3), (2, 30, 77, 96, 3), (2, 9, 200, 128, 2)],
 )
 def test_decode_attention_q8_kernel_matches_plain(cuda, dtype, atol, B, Q, N, H, heads):
     gen = torch.Generator(device=cuda).manual_seed(B * Q + N + 1)
@@ -208,6 +214,66 @@ def test_decode_kernels_on_family_masks(cuda, case, int8):
             torch.testing.assert_close(got[:, rows], want[:, rows], atol=2e-2, rtol=0)
 
 
+def _decode_args(cuda, int8, gen, B, Q, N, H=256, heads=8):
+    """A decode kernel's wrapper, its plain version, and its arguments from
+    ``gen`` (K1 over a bf16 cache, or K2 over an int8 one) for the lanes
+    ``lanes``, the first ``rows`` query rows and a [rows, N] mask."""
+    q = torch.randn((B, Q, H), generator=gen, device=cuda).bfloat16()
+    if int8:
+        _, k, v, ks, vs = _q8_inputs(gen, cuda, B, 1, N, H, torch.bfloat16)
+        cache = (k, v, ks, vs)
+        fns = (attention.cached_decode_attention_q8, attention.cached_decode_attention_q8_reference)
+    else:
+        cache = tuple(torch.randn((B, N, H), generator=gen, device=cuda).bfloat16() for _ in range(2))
+        fns = (attention.cached_decode_attention, attention.cached_decode_attention_reference)
+    return (*fns, lambda lanes, mask: (q[lanes, :mask.shape[0]].contiguous(), *(x[lanes] for x in cache), mask, heads))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Q,N", [(48, 1536), (16, 1000), (64, 999), (65, 300)])
+def test_decode_kernels_rows_that_see_no_key_in_some_chunks(cuda, int8, Q, N):
+    """Rows that see no key at all, rows that see the keys of one 64-key
+    chunk only (a different chunk each), rows that see every 7th key, rows
+    that see only the last (partial) chunk's keys, and rows that see every
+    key, in one launch: every row within 2e-2 of the plain version (a row
+    that sees no key is the uniform average of V in both)."""
+    gen = torch.Generator(device=cuda).manual_seed(Q + N + int8)
+    chunks = (N + 63) // 64
+    mask = torch.zeros((Q, N), dtype=torch.bool, device=cuda)
+    for i in range(2, Q):
+        kind = i % 4
+        if kind == 0:
+            mask[i] = True
+        elif kind == 1:
+            mask[i, 64 * (i % chunks):64 * (i % chunks) + 64] = True
+        elif kind == 2:
+            mask[i, i % 7::7] = True
+        else:
+            mask[i, 64 * (chunks - 1):] = True
+    kernel, plain, args = _decode_args(cuda, int8, gen, 3, Q, N)
+    got, want = kernel(*args(slice(None), mask)).float(), plain(*args(slice(None), mask)).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_lanes_independent_of_batch_and_repeatable(cuda, int8):
+    """At the rollout's two shapes and DT's 48 rows: lanes 128-255 of a
+    256-lane launch equal a 128-lane launch of the same inputs, and two
+    launches equal each other, bit for bit (no atomics; a lane's result
+    does not depend on which block of the persistent grid takes it)."""
+    m1, m2 = stream_step_masks(46, 32, 16, 3, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7 + int8)
+    kernel, _, args = _decode_args(cuda, int8, gen, 256, 48, 1536)
+    for mask in (m1[45], m2[45], torch.cat([m1[45], m2[45]])):
+        whole, again = kernel(*args(slice(None), mask)), kernel(*args(slice(None), mask))
+        half = kernel(*args(slice(128, 256), mask))
+        torch.cuda.synchronize()
+        assert torch.equal(whole, again)
+        assert torch.equal(whole[128:], half)
+
+
 def _device_kernel_names(fn) -> str:
     """The names of the device kernels that ``fn`` launches, from the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -220,27 +286,49 @@ def _device_kernel_names(fn) -> str:
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_decode_attention_dispatches_by_dtype(cuda, int8):
-    """bf16 runs the tensor-core kernel and f32 the CUDA-core one: both
-    launch through the same wrapper, and agree within bf16 rounding."""
+    """bf16 runs the tensor-core kernel (over the int8 cache at Q = 32 the
+    keys design's) and f32 the CUDA-core one: both launch through the same
+    wrapper, and agree within bf16 rounding."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k8, v8, ks, vs = _q8_inputs(gen, cuda, 4, 32, 1536, 256, torch.float32)
     k, v = (torch.randn((4, 1536, 256), generator=gen, device=cuda) for _ in range(2))
     mask = torch.rand((32, 1536), generator=gen, device=cuda) > 0.3
     fn = attention.cached_decode_attention_q8 if int8 else attention.cached_decode_attention
     name = "decode_attention_q8" if int8 else "decode_attention"
+    tensor_core = f"{name}_keys_kernel<" if int8 else f"{name}_wgmma_kernel<"
     outs = {}
-    for dtype, kernel in ((torch.float32, f"{name}_kernel<"), (torch.bfloat16, f"{name}_mma_kernel<")):
+    for dtype, kernel in ((torch.float32, f"{name}_kernel<"), (torch.bfloat16, tensor_core)):
         args = (q.to(dtype), k8, v8, ks, vs, mask, 8) if int8 else (q.to(dtype), k.to(dtype), v.to(dtype), mask, 8)
         before = fn.launches
         names = _device_kernel_names(lambda: outs.__setitem__(dtype, fn(*args)))
         assert fn.launches == before + 1
         assert kernel in names, names
-        other = f"{name}_mma_kernel<" if dtype == torch.float32 else f"{name}_kernel<"
+        other = tensor_core if dtype == torch.float32 else f"{name}_kernel<"
         assert other not in names, names
         assert outs[dtype].dtype == dtype
     a, b = outs[torch.float32], outs[torch.bfloat16].float()
     assert torch.isfinite(b).all()
     assert (a - b).abs().max().item() <= 5e-2 * max(1.0, a.abs().max().item())
+
+
+@pytest.mark.parametrize("Q,design", [(1, "keys"), (16, "keys"), (17, "keys"), (32, "keys"), (33, "wgmma"),
+                                      (64, "wgmma")])
+def test_decode_attention_q8_design_by_rows(cuda, Q, design):
+    """Over the int8 cache in bf16, Q <= 32 query rows run the keys design
+    (S^T = K Q^T, 16- or 32-row items) and more rows the rows design (64-row
+    items): one launch of the one kernel, within 2e-2 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(Q + 11)
+    q, k, v, ks, vs = _q8_inputs(gen, cuda, 4, Q, 1536, 256, torch.bfloat16)
+    mask = torch.rand((Q, 1536), generator=gen, device=cuda) > 0.5
+    mask[:, 0] = True
+    out = {}
+    names = _device_kernel_names(lambda: out.__setitem__(
+        "got", attention.cached_decode_attention_q8(q, k, v, ks, vs, mask, 8)))
+    assert f"decode_attention_q8_{design}_kernel<" in names, names
+    other = "wgmma" if design == "keys" else "keys"
+    assert f"decode_attention_q8_{other}_kernel<" not in names, names
+    want = attention.cached_decode_attention_q8_reference(q, k, v, ks, vs, mask, 8)
+    torch.testing.assert_close(out["got"].float(), want.float(), atol=2e-2, rtol=0)
 
 
 def _flash_inputs(cuda, B, steps, A, K, heads, d, dtype, seed):
